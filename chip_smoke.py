@@ -1,20 +1,41 @@
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase, as the gate runs it
+    python3 chip_smoke.py riccati rmpc     # only the named phases
 
 Phases, each of which raises on failure (so the script exits non-zero):
 1. device: require CUDA, print versions, the card and its power limit;
-2. build: compile `dart_tpu_torch/csrc/*.cu` with nvcc, print the seconds;
-3. kernel vs plain: the whole-solve kernel against its plain PyTorch
-   version at B=4096, N=15, 2 iterations x 3 alphas, in float64 and
-   float32, plus one lane with broken Ad structure that must come back +inf;
-4. main path: `PMPCBatch` in closed loop with the analytic RK4 plant for
-   1200 steps (2.4 s simulated) at B=4096 in float32, gated on finite
-   controls, kernel launches and success within 1 cm; then 3 chained warm
-   rounds and the projected-gradient certificate;
-5. times (printed, not gated): one `pmpc_solve` call, kernel and plain, and
-   one closed-loop step.
-The last two lines are the kernels' JSON record and the device JSON.
+2. build: compile `dart_tpu_torch/csrc/*.cu` with nvcc (one process per
+   source, all at once), print the seconds, registers and stack frames;
+3. pmpc: the PMPC whole-solve kernel against its plain PyTorch version at
+   B=4096, N=15, 2 iterations x 3 alphas, in float64 and float32, plus one
+   lane with broken Ad structure that must come back +inf;
+4. riccati: the Riccati backward kernel against its plain version at
+   B=4096, nz=6 (N=15, 20) and nz=10 (N=20), float64 and float32, and a
+   tight box whose steps must stay inside it;
+5. rmpc: the RMPC whole-solve kernel against its plain version at B=4096,
+   N=20, 6 iterations x 4 alphas x 3 AL rounds, float64 and float32, plus
+   one lane with NaN theta that must report NaN alone;
+6. main: `PMPCBatch` in closed loop with the analytic RK4 plant for 1200
+   steps (2.4 s simulated) at B=4096 in float32, gated on finite controls,
+   kernel launches and success within 1 cm; then 3 chained warm rounds and
+   the projected-gradient certificate;
+7. fallback: `PMPCBatch(use_kernel=False)` (solve_batch_fast, whose
+   backward pass is the Riccati kernel) in the same closed loop, gated the
+   same; then a few steps at B=4000, off the kernel's 128-lane grid;
+8. rmpc-main: `RMPCBatch` at its production settings (N=20, 6x4x3, per-lane
+   rescue on) in closed loop for 2500 steps (5 s simulated) at B=4096 in
+   float32 against a plant with friction the nominal model lacks, gated on
+   the control bounds, certificates, kernel launches and success within
+   1 cm;
+9. rescue: a starved kernel budget on stiff lanes at B=4096, N=20, with
+   and without the per-lane `ilqr.solve_batch` rescue;
+10. times (printed, not gated): each kernel and its plain version per call
+   (CUDA events), and the closed-loop steps (host clock).
+`profile`, run only when named, traces closed-loop steps with
+torch.profiler and prints the device busy time per step and its rows.
+The last three lines are the card, the kernels' JSON record and the device
+JSON.
 """
 
 from __future__ import annotations
@@ -23,9 +44,15 @@ import json
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
+
+# Published H100 SXM peaks for the roofline bound: float32 outside the
+# tensor cores, and HBM3 bandwidth.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 B = 4096            # scenarios per card, as the bench runs them
 N = 15              # reference horizon
@@ -81,7 +108,8 @@ def phase_build() -> None:
     print(f"[build] {lib.relative_to(_build.PKG_DIR.parent)} in "
           f"{seconds:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("==")):
             print(f"[build] {line.strip()}")
 
 
@@ -263,7 +291,16 @@ def median_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def phase_times(dev: torch.device, card: str) -> tuple[float, float]:
+def bound(flops: int, nbytes: int) -> tuple[float, str]:
+    """The least time in ms the card could take for this work, and which
+    side bounds it."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_times(dev: torch.device, card: str) -> dict:
+    from dart_tpu_torch.ops.kernels import pmpc_solve as kps
     from dart_tpu_torch.ops.kernels.pmpc_solve import (pmpc_solve,
                                                        pmpc_solve_reference)
     from dart_tpu_torch.rollout import loop
@@ -276,10 +313,17 @@ def phase_times(dev: torch.device, card: str) -> tuple[float, float]:
     torch.cuda.synchronize()
     ms = median_ms(lambda: pmpc_solve(*args, **kw), 20)
     plain_ms = median_ms(lambda: pmpc_solve_reference(*args, **kw), 10)
+    stats = {}
+    pmpc_solve_reference(*args, **kw, stats=stats)
+    trials = int(stats["trials"].sum())
+    flops, nbytes = kps.work(N, ITERS, B, trials, 4)
+    bound_ms, bound_by = bound(flops, nbytes)
     print(f"[times] pmpc_solve B={B} N={N} {ITERS}x{ALPHAS} float32, median "
           f"per call: kernel {ms:.4f} ms ({B / ms * 1e3:.4g} solves/s), "
           f"plain {plain_ms:.2f} ms ({B / plain_ms * 1e3:.4g} solves/s) "
           f"[{card}]")
+    print(f"[times] pmpc_solve work: {flops} FLOPs ({trials} line-search "
+          f"trials), {nbytes} bytes; bound {bound_ms:.6f} ms by {bound_by}")
 
     ctlr, targets, _, weights, params, plant = main_path_setup(dev)
     solve_fn = loop.pmpc_solve_fn(ctlr, targets, params, weights)
@@ -295,23 +339,700 @@ def phase_times(dev: torch.device, card: str) -> tuple[float, float]:
     print(f"[times] closed-loop PMPCBatch step (steps 50-250, host clock): "
           f"{step_ms:.4f} ms/step ({B / step_ms * 1e3:.4g} solves/s) "
           f"[{card}]")
-    return ms, plain_ms
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Riccati backward kernel
+# ---------------------------------------------------------------------------
+
+# Kernel vs plain tolerances. Both evaluate the same expressions in the same
+# order; they differ by FMA contraction in the kernel (~1 ulp per operation).
+# float64: far inside 1e-10 on D and K.
+RIC_F64_TOL = {"D": 1e-10, "K": 1e-10}
+# float32: a few ulps per operation, carried through N stages of the value
+# recursion. The 9-way box QP tests KKT signs at 1e-9, below float32's
+# resolution, so at a near tie the two may pick different active sets and
+# a lane's D and the rows of K its free set zeroes differ at O(1): the
+# bulk is held at tests/test_pallas_riccati.py's D 2e-5 / K 2e-4 (99th
+# percentile over every entry), and at most 0.5% of lanes may differ more.
+RIC_F32_TOL = {"D_p99": 2e-5, "K_p99": 2e-4, "lanes_off": 0.005}
+
+
+def riccati_problem(seed: int, N_: int, nz: int, dtype: torch.dtype,
+                    dev: torch.device, box: float = 0.6):
+    """Batch-last inputs made as tests/test_pallas_riccati.py:16-35 makes
+    them, with a per-lane reg. V is clipped into the box."""
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape):
+        return rng.normal(size=shape) * 0.1
+
+    eye = np.eye(nz)
+    A = mk(B, N_, nz, nz) + eye
+    Bm = mk(B, N_, nz, 2)
+    lx = mk(B, N_, nz)
+    lu = mk(B, N_, 2)
+    h = mk(B, N_, nz, nz)
+    lxx = np.einsum("bnij,bnkj->bnik", h, h) + 2 * eye
+    lux = mk(B, N_, 2, nz) * 0.1
+    h2 = mk(B, N_, 2, 2)
+    luu = np.einsum("bnij,bnkj->bnik", h2, h2) + 0.5 * np.eye(2)
+    gx = mk(B, nz)
+    h3 = mk(B, nz, nz)
+    gxx = np.einsum("bij,bkj->bik", h3, h3) + eye
+    V = np.clip(mk(B, N_, 2), -box, box)
+    reg = rng.uniform(1e-7, 1e-5, size=B)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(np.moveaxis(x, 0, -1)),
+                               dtype=dtype, device=dev)
+
+    args = [t(x) for x in (A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V)]
+    return args, (-box, -box), (box, box), torch.as_tensor(
+        reg, dtype=dtype, device=dev)
+
+
+def phase_riccati(dev: torch.device) -> float:
+    """Returns the float32 max |dD| at the main path's shape (nz=6, N=20
+    is what the time phase measures; every case must pass)."""
+    from dart_tpu_torch.ops.kernels.riccati import (
+        riccati_backward, riccati_backward_reference)
+
+    err32 = 0.0
+    for nz, N_ in ((6, 15), (6, 20), (10, 20)):
+        for dtype in (torch.float64, torch.float32):
+            args, lo, hi, reg = riccati_problem(nz * 100 + N_, N_, nz,
+                                                dtype, dev)
+            D, K = riccati_backward(*args, lo, hi, reg)
+            D_p, K_p = riccati_backward_reference(*args, lo, hi, reg)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(D).all())
+                    and bool(torch.isfinite(K).all())):
+                raise AssertionError(f"riccati nz={nz} N={N_} {dtype}: "
+                                     "kernel output not finite")
+            dD, dK = (D - D_p).abs(), (K - K_p).abs()
+            name = str(dtype).replace("torch.", "")
+            msg = (f"[riccati] nz={nz} N={N_} {name}: max|dD| "
+                   f"{float(dD.max()):.3e}, max|dK| {float(dK.max()):.3e}")
+            if dtype == torch.float64:
+                print(msg + f" (limits {RIC_F64_TOL['D']:.0e}, "
+                      f"{RIC_F64_TOL['K']:.0e})")
+                if (float(dD.max()) > RIC_F64_TOL["D"]
+                        or float(dK.max()) > RIC_F64_TOL["K"]):
+                    raise AssertionError(f"riccati disagrees with plain "
+                                         f"(nz={nz}, N={N_}, float64)")
+                continue
+            D99 = float(torch.quantile(dD.flatten().double()[:2 ** 24],
+                                       0.99))
+            K99 = float(torch.quantile(dK.flatten().double()[:2 ** 24],
+                                       0.99))
+            lane_d = torch.maximum(dD.amax(dim=(0, 1)), dK.amax(dim=(0, 1, 2)))
+            off = float((lane_d > RIC_F32_TOL["K_p99"]).double().mean())
+            print(msg + f", p99|dD| {D99:.3e} (limit "
+                  f"{RIC_F32_TOL['D_p99']:.0e}), p99|dK| {K99:.3e} (limit "
+                  f"{RIC_F32_TOL['K_p99']:.0e}), lanes off by > "
+                  f"{RIC_F32_TOL['K_p99']:.0e}: {off:.4%} (limit "
+                  f"{RIC_F32_TOL['lanes_off']:.1%})")
+            if (D99 > RIC_F32_TOL["D_p99"] or K99 > RIC_F32_TOL["K_p99"]
+                    or off > RIC_F32_TOL["lanes_off"]):
+                raise AssertionError(f"riccati disagrees with plain "
+                                     f"(nz={nz}, N={N_}, float32)")
+            if (nz, N_) == (6, 20):
+                err32 = float(torch.maximum(dD.max(), dK.max()))
+
+    # Tight box: many active constraints; V + D must stay inside it.
+    for dtype in (torch.float64, torch.float32):
+        args, lo, hi, reg = riccati_problem(7, 20, 6, dtype, dev, box=0.05)
+        D, K = riccati_backward(*args, lo, hi, reg)
+        D_p, _ = riccati_backward_reference(*args, lo, hi, reg)
+        Vn = args[-1] + D
+        worst = float((Vn.abs() - 0.05).max())
+        active = float((Vn.abs() > 0.05 - 1e-6).double().mean())
+        print(f"[riccati] box 0.05, {str(dtype)[6:]}: max(|V+D| - 0.05) "
+              f"{worst:.3e} (limit 1e-6), share of steps at a bound "
+              f"{active:.3f}, max|dD| vs plain {float((D - D_p).abs().max()):.3e}")
+        if worst > 1e-6:
+            raise AssertionError("riccati step leaves the box")
+    return err32
+
+
+# ---------------------------------------------------------------------------
+# RMPC whole-solve kernel
+# ---------------------------------------------------------------------------
+
+RMPC_N = 20
+RMPC_BUDGET = dict(n_iters=6, n_alphas=4, al_rounds=3)
+RMPC_KW = dict(dt=DT, u_bound=0.4, du_bound=0.05, vmax=0.25, v_eps=0.1,
+               mu_init=10.0, mu_scale=10.0, mu_max=1e8, tol_con=1e-8,
+               **RMPC_BUDGET)
+# float64: FMA contraction only (~1 ulp per operation); a line-search or
+# box-QP tie is improbable at this resolution.
+RMPC_F64_TOL = {"V": 1e-9, "cost_rel": 1e-10, "viol": 1e-9, "gnorm": 1e-9}
+# float32: a few ulps per operation through 18 Newton iterations. The line
+# search accepts on c_new < cost - 1e-12, far below float32's resolution, so
+# at a near tie a lane may accept another alpha and take a different (as
+# good) path: the max is bounded by tests/test_rmpc_solve_kernel.py's
+# kernel-vs-generic limits (cost rtol 5e-3, viol atol 1e-4), the bulk
+# tightly (99th percentile of |dV0| 1e-4, against that test's 2e-3).
+RMPC_F32_TOL = {"V_p99": 1e-4, "V": 5e-2, "cost_rel": 5e-3, "viol": 1e-4,
+                "gnorm": 5e-2}
+
+
+def rmpc_problem(seed: int, dtype: torch.dtype, dev: torch.device,
+                 N_: int = RMPC_N):
+    """Batch-last inputs of one `rmpc_solve`: estimates and references as
+    tests/test_rmpc_solve_kernel.py makes them, a quarter of the lanes
+    starting near or past the velocity caps and an eighth on a tilt bound
+    (so the AL rows and the clip mask are exercised), a random warm start
+    partly outside +-du_bound."""
+    from dart_tpu_torch.control.reference import build_ref_traj
+
+    rng = np.random.default_rng(seed)
+    thetas = rng.normal(size=(B, 14)) * 0.3
+    states = rng.normal(size=(B, 4)) * 0.05
+    q = B // 4
+    states[:q, 1] = rng.uniform(-0.3, 0.3, q)
+    states[:q, 3] = rng.uniform(-0.3, 0.3, q)
+    up0 = rng.uniform(-0.1, 0.1, (B, 2))
+    up0[q:q + B // 8] = rng.choice([-0.4, 0.4], size=(B // 8, 2))
+    tmask = np.array([1.0, 0.0, 1.0, 0.0])
+    targets = rng.uniform(-0.08, 0.08, (B, 4)) * tmask
+    refs = build_ref_traj(torch.as_tensor(states * tmask),
+                          torch.as_tensor(targets), N_, 0.2).numpy()
+    z0 = np.concatenate([states, up0], -1)
+    V0 = rng.uniform(-0.08, 0.08, (B, N_, 2))
+    w = np.stack([np.full(B, v) for v in (100.0, 1.0, 0.05, 1.0)])
+
+    def t(x, last=True):
+        x = np.moveaxis(x, 0, -1) if last else x
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=dev)
+
+    return [t(thetas), t(refs), t(w, last=False), t(z0), t(V0)]
+
+
+def phase_rmpc(dev: torch.device) -> float:
+    """Returns the float32 max |dV|."""
+    from dart_tpu_torch.ops.kernels.rmpc_solve import (rmpc_solve,
+                                                       rmpc_solve_reference)
+
+    err32 = None
+    for dtype, tol in ((torch.float64, RMPC_F64_TOL),
+                       (torch.float32, RMPC_F32_TOL)):
+        args = rmpc_problem(3, dtype, dev)
+        V, cost, viol, gn = rmpc_solve(*args, **RMPC_KW)
+        V_p, cost_p, viol_p, gn_p = rmpc_solve_reference(*args, **RMPC_KW)
+        torch.cuda.synchronize()
+        for nm, x in (("V", V), ("cost", cost), ("viol", viol),
+                      ("gnorm", gn)):
+            if not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"rmpc kernel {nm} not finite ({dtype})")
+        dV = float((V - V_p).abs().max())
+        dV99 = float(torch.quantile((V[0] - V_p[0]).abs().flatten()
+                                    .double(), 0.99))
+        dc = float(((cost - cost_p).abs() / (1 + cost_p.abs())).max())
+        dvl = float((viol - viol_p).abs().max())
+        dg = float((gn - gn_p).abs().max())
+        name = str(dtype).replace("torch.", "")
+        print(f"[rmpc] {name}: max|dV| {dV:.3e} (limit {tol['V']:.0e}), "
+              + (f"p99|dV0| {dV99:.3e} (limit {tol['V_p99']:.0e}), "
+                 if "V_p99" in tol else "")
+              + f"max|dcost|/(1+|cost|) {dc:.3e} (limit "
+              f"{tol['cost_rel']:.0e}), max|dviol| {dvl:.3e} (limit "
+              f"{tol['viol']:.0e}), max|dgnorm| {dg:.3e} (limit "
+              f"{tol['gnorm']:.0e}); lanes with viol > 0: "
+              f"{int((viol > 0).sum())}, max viol {float(viol.max()):.3e}, "
+              f"max gnorm {float(gn.max()):.3e}")
+        if (dV > tol["V"] or dV99 > tol.get("V_p99", tol["V"])
+                or dc > tol["cost_rel"] or dvl > tol["viol"]
+                or dg > tol["gnorm"]):
+            raise AssertionError(f"rmpc kernel disagrees with plain in {name}")
+        if float(V.abs().max()) > 0.05 + 1e-6:
+            raise AssertionError("rmpc kernel V outside +-du_bound")
+        if dtype == torch.float32:
+            err32 = dV
+
+    # One lane with NaN theta must report NaN, the others stay finite.
+    args = rmpc_problem(3, torch.float32, dev)
+    args[0][:, 5] = float("nan")
+    V, cost, viol, gn = rmpc_solve(*args, **RMPC_KW)
+    rest = torch.ones(B, dtype=torch.bool, device=dev)
+    rest[5] = False
+    nan5 = bool(torch.isnan(viol[5])) or bool(torch.isnan(gn[5]))
+    fin = all(bool(torch.isfinite(x[..., rest]).all())
+              for x in (V, cost, viol, gn))
+    print(f"[rmpc] NaN-theta lane 5: viol {float(viol[5])}, gnorm "
+          f"{float(gn[5])}; other lanes finite: {fin}")
+    if not (nan5 and fin):
+        raise AssertionError("NaN lane not reported, or it leaked")
+
+    # A horizon without a kernel instance is refused before any launch.
+    launches = rmpc_solve.launches
+    try:
+        rmpc_solve(*rmpc_problem(3, torch.float32, dev, N_=8), **RMPC_KW)
+    except NotImplementedError as e:
+        print(f"[rmpc] N=8 refused: {e}")
+    else:
+        raise AssertionError("N=8 launched without a kernel instance")
+    if rmpc_solve.launches != launches:
+        raise AssertionError("a refused call counted a launch")
+    return err32
+
+
+# ---------------------------------------------------------------------------
+# PMPC branches on the Riccati kernel
+# ---------------------------------------------------------------------------
+
+def phase_fallback(dev: torch.device, card: str) -> dict:
+    from dart_tpu_torch.control import mpc
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.rollout import loop
+
+    _, targets, mus, weights, params, plant = main_path_setup(dev)
+    ctlr = mpc.PMPCBatch(N=N, dt=DT, use_kernel=False)
+    solve_fn = loop.pmpc_solve_fn(ctlr, targets, params, weights)
+    x0 = torch.zeros((B, 6), dtype=torch.float32, device=dev)
+    warm = STEPS // 6
+    riccati_backward.launches = 0
+    t0 = time.perf_counter()
+    carry, x, us = loop.run_batch_closed_loop(
+        solve_fn, plant, ctlr.init_carry(B, torch.float32, dev), x0, warm)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    carry, xf, us2 = loop.run_batch_closed_loop(solve_fn, plant, carry, x,
+                                                STEPS - warm)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = riccati_backward.launches
+    step_ms = (t2 - t1) / (STEPS - warm) * 1e3
+    success, err_mm = loop.quality_at_1cm(xf, targets)
+    print(f"[fallback] PMPCBatch(use_kernel=False) {STEPS} steps at B={B}, "
+          f"N={N}, float32: {launches} Riccati launches, "
+          f"{t2 - t0:.3f} s wall, {step_ms:.4f} ms/step over steps "
+          f"{warm}-{STEPS} (host clock) [{card}]")
+    print(f"[fallback] success@1cm {success:.4f} (gate >= 0.99), mean final "
+          f"error {err_mm:.4f} mm")
+    if not (bool(torch.isfinite(us).all()) and bool(torch.isfinite(us2).all())):
+        raise AssertionError("non-finite controls on the fallback path")
+    if launches < STEPS:
+        raise AssertionError(f"only {launches} Riccati launches in {STEPS} "
+                             "steps")
+    if success < 0.99:
+        raise AssertionError(f"fallback success@1cm {success} < 0.99")
+
+    # Off the kernel's grid: B = 4000 takes solve_batch_fast even with the
+    # whole-solve kernel allowed.
+    B2 = B - 96             # 4000 at B=4096: off the 128-lane grid
+    ctlr2 = mpc.PMPCBatch(N=N, dt=DT)
+    fn2 = loop.pmpc_solve_fn(ctlr2, targets[:B2],
+                             params._replace(mu=params.mu[:B2]), weights)
+    plant2 = loop.pmpc_plant_step(mus[:B2], DT)
+    before = riccati_backward.launches
+    _, _, us3 = loop.run_batch_closed_loop(
+        fn2, plant2, ctlr2.init_carry(B2, torch.float32, dev),
+        torch.zeros((B2, 6), dtype=torch.float32, device=dev), 5)
+    n2 = riccati_backward.launches - before
+    print(f"[fallback] B={B2}: 5 steps, {n2} Riccati launches")
+    if n2 < 5 or not bool(torch.isfinite(us3).all()):
+        raise AssertionError("B=4000 did not run on the Riccati kernel")
+    return {"launches": launches, "step_ms": step_ms}
+
+
+# ---------------------------------------------------------------------------
+# RMPC main path
+# ---------------------------------------------------------------------------
+
+RMPC_STEPS = 2500   # 5 s simulated, make_rmpc_batch_evaluator's n_steps
+RMPC_TOL_GRAD = 5e-3
+# Steps from rest in which a lane may stay uncertified. In the first steps
+# the RLS estimate rests on a few samples and can put positive velocity
+# feedback on a lane that no solve holds under the velocity caps: at step 3
+# JAX's own RMPCBatch leaves the same lanes infeasible with the same
+# violation (tests/test_torch_rmpc_batch.py::
+# test_rls_transient_is_infeasible_in_jax_too). From this step on, every
+# lane must be certified after every step.
+RMPC_TRANSIENT = 10
+
+
+def rmpc_controller(**over):
+    from dart_tpu_torch.control import mpc
+    from dart_tpu_torch.solver import ilqr
+
+    kw = dict(N=RMPC_N, dt=DT, u_bound=0.4, du_bound=0.05, vmax=0.25,
+              cfg=ilqr.ILQRConfig(max_iters=10, al_iters=3),
+              kernel_iters=6, kernel_alphas=4, kernel_al_rounds=3,
+              kernel_max_extra_rounds=2, kernel_tol_grad=RMPC_TOL_GRAD,
+              kernel_xla_fallback=True)
+    kw.update(over)
+    return mpc.RMPCBatch(**kw)
+
+
+def rmpc_scenario(dev: torch.device):
+    """Plant friction mu ~ U(0.05, 0.2) (the nominal model, theta = 0, has
+    none) and targets ~ U(-0.1, 0.1) m on x and y, float32."""
+    rng = np.random.default_rng(1)
+    mus = torch.as_tensor(rng.uniform(0.05, 0.2, size=B), dtype=torch.float32,
+                          device=dev)
+    t4 = np.zeros((B, 4))
+    t4[:, 0] = rng.uniform(-0.1, 0.1, B)
+    t4[:, 2] = rng.uniform(-0.1, 0.1, B)
+    return mus, torch.as_tensor(t4, dtype=torch.float32, device=dev)
+
+
+def phase_rmpc_main(dev: torch.device, card: str) -> dict:
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.ops.kernels.rmpc_solve import rmpc_solve
+    from dart_tpu_torch.rollout import loop
+    from dart_tpu_torch.solver import ilqr
+
+    mus, targets4 = rmpc_scenario(dev)
+    plant = loop.pmpc_plant_step(mus, DT)
+    ctlr = rmpc_controller()
+    tol_con = ctlr.cfg.tol_con
+    x = torch.zeros((B, 6), dtype=torch.float32, device=dev)
+    carry = ctlr.init_carry_batch(x[:, :4])
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    nonfinite, umax, dumax = zero.clone(), zero.clone(), zero.clone()
+    uncert, iters, rescue_steps = [], [], 0
+    # The largest positive velocity-feedback estimate (theta on the tanh
+    # features) among lanes left uncertified.
+    feedback, viol_bad = zero.clone(), zero.clone()
+    rmpc_solve.launches = 0
+    riccati_backward.launches = 0
+    syncs0 = ilqr.host_bool.count
+    warm = RMPC_STEPS // 5
+    t0 = t_mid = time.perf_counter()
+    with torch.no_grad():
+        for step in range(RMPC_STEPS):
+            if step == warm:
+                torch.cuda.synchronize()
+                t_mid = time.perf_counter()
+            r0 = riccati_backward.launches
+            u_prev = carry.u_prev
+            carry, u, diag = ctlr.solve_batched(carry, x[:, :4], targets4)
+            rescue_steps += riccati_backward.launches > r0
+            x = plant(x, u)
+            nonfinite += (~torch.isfinite(u)).sum()
+            umax = torch.maximum(umax, u.abs().amax())
+            dumax = torch.maximum(dumax, (u - u_prev).abs().amax())
+            bad = ~(diag.viol <= tol_con) | \
+                ~(diag.grad_norm <= RMPC_TOL_GRAD)
+            uncert.append(bad.sum())
+            th = torch.cat([carry.rls_x.theta[:, 4:5],
+                            carry.rls_y.theta[:, 5:6]], -1)
+            feedback = torch.maximum(feedback, torch.where(
+                bad[:, None], th, torch.zeros_like(th)).amax())
+            viol_bad = torch.maximum(viol_bad, torch.where(
+                bad, diag.viol, torch.zeros_like(diag.viol)).amax())
+            iters.append(diag.iters[0])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = rmpc_solve.launches
+    ric = riccati_backward.launches
+    syncs = ilqr.host_bool.count - syncs0
+    step_ms = (t1 - t_mid) / (RMPC_STEPS - warm) * 1e3
+    extra = (torch.stack(iters).cpu().numpy()
+             // (ctlr.kernel_iters * ctlr.kernel_al_rounds)) - 1
+    success, err_mm = loop.quality_at_1cm(x, targets4)
+    uncert = torch.stack(uncert).cpu().numpy()
+    late = int(uncert[RMPC_TRANSIENT:].sum())
+    hit = np.nonzero(uncert)[0]
+    print(f"[rmpc-main] RMPCBatch {RMPC_STEPS} steps at B={B}, N={RMPC_N}, "
+          f"6x4x3, float32: {launches} rmpc_solve launches, {t1 - t0:.3f} s "
+          f"wall, {step_ms:.4f} ms/step over steps {warm}-{RMPC_STEPS} (host "
+          f"clock) [{card}]")
+    print(f"[rmpc-main] escalation rounds: total {int(extra.sum())}, steps "
+          f"escalated {int((extra > 0).sum())}, max {int(extra.max())}; "
+          f"rescue steps {rescue_steps}, Riccati launches {ric}; host syncs "
+          f"{syncs}")
+    print(f"[rmpc-main] max|u| {float(umax):.6f} (limit 0.4), max|du| "
+          f"{float(dumax):.6f} (limit 0.05 + 1e-6), non-finite controls "
+          f"{int(nonfinite)}")
+    print(f"[rmpc-main] uncertified lane-steps: {int(uncert.sum())} in "
+          f"{len(hit)} steps (first {hit[:1].tolist()}, last "
+          f"{hit[-1:].tolist()}), {late} from step {RMPC_TRANSIENT} on "
+          f"(gate 0); "
+          f"largest velocity-feedback estimate among them "
+          f"{float(feedback):.3f}, their largest viol after the rescue "
+          f"{float(viol_bad):.3e}")
+    print(f"[rmpc-main] success@1cm {success:.4f} (gate >= 0.99), mean final "
+          f"error {err_mm:.4f} mm")
+    if int(nonfinite) != 0:
+        raise AssertionError("non-finite controls on the RMPC path")
+    if float(umax) > 0.4 or float(dumax) > 0.05 + 1e-6:
+        raise AssertionError("a control left its tilt or slew bound")
+    if launches < RMPC_STEPS:
+        raise AssertionError(f"only {launches} rmpc_solve launches in "
+                             f"{RMPC_STEPS} steps")
+    if late != 0:
+        raise AssertionError(f"{late} lane-steps uncertified from step "
+                             f"{RMPC_TRANSIENT} on")
+    if success < 0.99:
+        raise AssertionError(f"RMPC success@1cm {success} < 0.99")
+    return {"launches": launches, "riccati": ric, "step_ms": step_ms}
+
+
+def phase_rescue(dev: torch.device) -> int:
+    """The starved-budget mechanism of tests/test_rmpc_kernel_rescue.py at
+    B=4096, N=20. Returns the Riccati launches of the rescued solve."""
+    from dart_tpu_torch.adapt.rls import RLSState
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+
+    rng = np.random.default_rng(7)
+    states = rng.normal(size=(B, 4)) * 0.02
+    targets = np.tile([0.112, 0.0, 0.06, 0.0], (B, 1))
+    half = B // 2
+    states[:half, 1] = 0.0
+    states[:half, 3] = 0.0
+    targets[:half] = states[:half]
+    th = rng.normal(size=(B, 14)) * 0.3
+    th[half:] = rng.normal(size=(half, 14)) * 0.2
+    th[half:, 1] = -rng.uniform(10, 40, half)
+    th[half:, 4] = -rng.uniform(2, 8, half)
+    th[half:, 6] = rng.uniform(-1, 1, half)
+    th[half:, 10] = -rng.uniform(10, 40, half)
+    th[half:, 12] = -rng.uniform(2, 8, half)
+    th[half:, 13] = rng.uniform(-1, 1, half)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    states, targets, th = t(states), t(targets), t(th)
+
+    def run(fallback: bool):
+        ctlr = rmpc_controller(kernel_iters=1, kernel_alphas=2,
+                               kernel_al_rounds=1, kernel_max_extra_rounds=0,
+                               kernel_xla_fallback=fallback)
+        carry = ctlr.init_carry_batch(states)
+        carry = carry._replace(
+            rls_x=RLSState(theta=th[:, :7], P=carry.rls_x.P),
+            rls_y=RLSState(theta=th[:, 7:], P=carry.rls_y.P))
+        with torch.no_grad():
+            _, u, diag = ctlr.solve_batched(carry, states, targets)
+        bad = ~(diag.viol <= ctlr.cfg.tol_con) | \
+            ~(diag.grad_norm <= RMPC_TOL_GRAD)
+        return ctlr, u, diag, bad
+
+    _, u0, _, bad0 = run(False)
+    riccati_backward.launches = 0
+    t0 = time.perf_counter()
+    ctlr1, u1, diag1, bad1 = run(True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ric = riccati_backward.launches
+    good = ~bad0
+    same = bool(torch.equal(u1[good], u0[good]))
+    print(f"[rescue] starved 1x2x1, N={RMPC_N}, B={B}: without the rescue "
+          f"{int(bad0.sum())} lanes uncertified; with it "
+          f"{int(bad1.sum())} (max viol {float(diag1.viol.max()):.3e}, max "
+          f"gnorm {float(diag1.grad_norm.max()):.3e}), {ric} Riccati "
+          f"launches, {secs:.3f} s; certified lanes bit-identical: {same}")
+    if not bool(bad0.any()):
+        raise AssertionError("the starved budget certified every lane")
+    if not bool(torch.isfinite(u1).all()):
+        raise AssertionError("non-finite rescued controls")
+    if not (bool((diag1.viol <= ctlr1.cfg.tol_con + 1e-6).all())
+            and bool((diag1.grad_norm <= RMPC_TOL_GRAD).all())):
+        raise AssertionError("the rescue left lanes uncertified")
+    if ric == 0 or not same:
+        raise AssertionError("no Riccati launch, or certified lanes moved")
+    return ric
+
+
+def phase_kernel_times(dev: torch.device, card: str) -> dict:
+    from dart_tpu_torch.ops.kernels import riccati as kric
+    from dart_tpu_torch.ops.kernels import rmpc_solve as krs
+
+    out = {}
+    args = rmpc_problem(3, torch.float32, dev)
+    krs.rmpc_solve(*args, **RMPC_KW)
+    torch.cuda.synchronize()
+    ms = median_ms(lambda: krs.rmpc_solve(*args, **RMPC_KW), 20)
+    stats = {}
+    t0 = time.perf_counter()
+    krs.rmpc_solve_reference(*args, **RMPC_KW, stats=stats)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    plain_ms = median_ms(lambda: krs.rmpc_solve_reference(*args, **RMPC_KW),
+                         2)
+    trials = int(stats["trials"].sum())
+    flops, trans, nbytes = krs.work(RMPC_N, 6, 3, B, trials, 4)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[times] rmpc_solve B={B} N={RMPC_N} 6x4x3 float32, median per "
+          f"call: kernel {ms:.4f} ms ({B / ms * 1e3:.4g} solves/s), plain "
+          f"{plain_ms:.2f} ms (first call {first * 1e3:.2f} ms) [{card}]")
+    print(f"[times] rmpc_solve work: {flops} FLOPs, {trans} tanh/sin/cos "
+          f"({trials} line-search trials, {trials / B:.2f} per lane), "
+          f"{nbytes} bytes; bound {bound_ms:.6f} ms by {bound_by}")
+    out["rmpc_solve"] = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
+
+    args, lo, hi, reg = riccati_problem(620, 20, 6, torch.float32, dev)
+    kric.riccati_backward(*args, lo, hi, reg)
+    torch.cuda.synchronize()
+    ms = median_ms(lambda: kric.riccati_backward(*args, lo, hi, reg), 50)
+    plain_ms = median_ms(
+        lambda: kric.riccati_backward_reference(*args, lo, hi, reg), 3)
+    flops, nbytes = kric.work(20, 6, B, 4)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[times] riccati_backward B={B} N=20 nz=6 float32, median per "
+          f"call: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms [{card}]")
+    print(f"[times] riccati_backward work: {flops} FLOPs, {nbytes} bytes; "
+          f"bound {bound_ms:.6f} ms by {bound_by}")
+    out["riccati_backward"] = {"ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def traced_steps(step, n: int, card: str, label: str) -> None:
+    """Trace `n` calls of `step()` with torch.profiler and print the device
+    busy time per step, the idle share and the device rows by total."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        cnt, tot = rows.get(e.name, (0, 0.0))
+        rows[e.name] = (cnt + 1, tot + us)
+    busy = sum(t for _, t in rows.values()) / n / 1e3
+    step_ms = wall / n * 1e3
+    print(f"[profile] {label}: {n} traced steps, {step_ms:.4f} ms/step "
+          f"under the profiler, device busy {busy:.4f} ms/step, idle share "
+          f"{1 - busy / step_ms:.4f}, "
+          f"{sum(c for c, _ in rows.values()) / n:.1f} device ops/step "
+          f"[{card}]")
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][1])
+    ours = [kv for kv in ranked[8:] if "_kernel<" in kv[0]
+            and kv[0].split("_kernel<")[0].split("::")[-1]
+            in ("pmpc_solve", "rmpc_solve", "riccati")]
+    for name, (cnt, tot) in ranked[:8] + ours:
+        print(f"[profile]   {cnt / n:7.2f}/step {tot / cnt:10.3f} us each "
+              f"{tot / n / 1e3:9.4f} ms/step  {name[:90]}")
+
+
+def phase_profile(dev: torch.device, card: str) -> None:
+    """Device time per closed-loop step, from torch.profiler: the RMPC main
+    path past its transient, and the PMPC fallback (Riccati) path."""
+    from dart_tpu_torch.control import mpc
+    from dart_tpu_torch.rollout import loop
+
+    mus, targets4 = rmpc_scenario(dev)
+    plant = loop.pmpc_plant_step(mus, DT)
+    ctlr = rmpc_controller()
+    solve_fn = loop.rmpc_solve_fn(ctlr, targets4)
+    x = torch.zeros((B, 6), dtype=torch.float32, device=dev)
+    st = {"c": ctlr.init_carry_batch(x[:, :4]), "x": x}
+
+    def rmpc_step():
+        st["c"], st["x"], _ = loop.run_batch_closed_loop(
+            solve_fn, plant, st["c"], st["x"], 1)
+
+    for _ in range(600):
+        rmpc_step()
+    traced_steps(rmpc_step, 20, card, "RMPC closed loop, steps 600-620")
+
+    _, targets, _, weights, params, plant6 = main_path_setup(dev)
+    pctlr = mpc.PMPCBatch(N=N, dt=DT, use_kernel=False)
+    pfn = loop.pmpc_solve_fn(pctlr, targets, params, weights)
+    pst = {"c": pctlr.init_carry(B, torch.float32, dev),
+           "x": torch.zeros((B, 6), dtype=torch.float32, device=dev)}
+
+    def pmpc_step():
+        pst["c"], pst["x"], _ = loop.run_batch_closed_loop(
+            pfn, plant6, pst["c"], pst["x"], 1)
+
+    for _ in range(200):
+        pmpc_step()
+    traced_steps(pmpc_step, 10, card,
+                 "PMPC fallback (use_kernel=False) closed loop, steps 200-210")
+
+
+PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
+          "rescue", "times")
+# Run only when named: the device-time breakdown behind PERF.md section 5.
+EXTRA_PHASES = ("profile",)
+
+
+def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
+    if ph == "pmpc":
+        res["pmpc_err"] = phase_kernel_vs_plain(dev)
+    elif ph == "riccati":
+        res["ric_err"] = phase_riccati(dev)
+    elif ph == "rmpc":
+        res["rmpc_err"] = phase_rmpc(dev)
+    elif ph == "main":
+        res["pmpc_launches"] = phase_main_path(dev, card)
+    elif ph == "fallback":
+        res["fallback"] = phase_fallback(dev, card)
+    elif ph == "rmpc-main":
+        res["rmpc_main"] = phase_rmpc_main(dev, card)
+    elif ph == "rescue":
+        res["rescue"] = phase_rescue(dev)
+    elif ph == "times":
+        res["pmpc_times"] = phase_times(dev, card)
+        res["times"] = phase_kernel_times(dev, card)
+    elif ph == "profile":
+        phase_profile(dev, card)
+
+
+def main(argv: list[str]) -> int:
+    phases = argv or list(PHASES)
+    unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; "
+                         f"choose from {PHASES + EXTRA_PHASES}")
     card = phase_device()
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     phase_build()
-    err32 = phase_kernel_vs_plain(dev)
-    launches = phase_main_path(dev, card)
-    ms, plain_ms = phase_times(dev, card)
+    res, failed = {}, []
+    for ph in phases:
+        t0 = time.perf_counter()
+        try:
+            run_phase(ph, dev, card, res)
+        except Exception:
+            traceback.print_exc()
+            failed.append(ph)
+        print(f"[phase] {ph}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[phase] all: {time.perf_counter() - t_start:.1f} s")
+    if failed:
+        print(f"chip_smoke: phases failed: {failed}")
+        return 1
+    if argv:
+        return 0
+    t = res["times"]
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "pmpc_solve", "route": "cuda",
-        "source": "dart_tpu_torch/csrc/pmpc_solve.cu",
-        "replaces": "dart_tpu/ops/pallas/pmpc_solve.py:57",
-        "launches": launches, "max_abs_err": err32,
-        "ms": ms, "plain_ms": plain_ms}]}))
+    print(json.dumps({"kernels": [
+        {"name": "pmpc_solve", "route": "cuda",
+         "source": "dart_tpu_torch/csrc/pmpc_solve.cu",
+         "replaces": "dart_tpu/ops/pallas/pmpc_solve.py:57",
+         "launches": res["pmpc_launches"], "max_abs_err": res["pmpc_err"],
+         **res["pmpc_times"], "library_ms": None},
+        {"name": "riccati_backward", "route": "cuda",
+         "source": "dart_tpu_torch/csrc/riccati.cu",
+         "replaces": "dart_tpu/ops/pallas/riccati.py:216",
+         "launches": res["fallback"]["launches"],
+         "max_abs_err": res["ric_err"], **t["riccati_backward"],
+         "library_ms": None},
+        {"name": "rmpc_solve", "route": "cuda",
+         "source": "dart_tpu_torch/csrc/rmpc_solve.cu",
+         "replaces": "dart_tpu/ops/pallas/rmpc_solve.py:57",
+         "launches": res["rmpc_main"]["launches"],
+         "max_abs_err": res["rmpc_err"], **t["rmpc_solve"],
+         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -319,4 +1040,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

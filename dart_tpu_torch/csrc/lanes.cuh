@@ -1,0 +1,266 @@
+// Per-lane device helpers shared by the kernels in this directory: one
+// thread holds one scenario lane, and these functions are that thread's
+// scalar algebra. They transcribe the lane helpers of
+// dart_tpu/ops/pallas/riccati.py (_boxqp2_lanes, _gains_lanes, _mm,
+// _rk4_jac_lanes) with the same operation order, so each kernel repeats its
+// TPU kernel's arithmetic; the plain PyTorch versions are in
+// dart_tpu_torch/ops/kernels/lanes.py.
+//
+// Every max, min and clip propagates NaN like jnp.maximum/jnp.clip, so a
+// diverged lane reports NaN diagnostics instead of a plausible number.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+
+namespace dart {
+
+// Returned by the C entry points before any launch; every other nonzero
+// code is a cudaError_t.
+constexpr int kBadShape = -1;    // a horizon or state size with no instance
+constexpr int kBadBudget = -2;   // an iteration budget the kernel refuses
+constexpr int kMaxAlphas = 16;
+
+__device__ __forceinline__ float dsin(float x) { return sinf(x); }
+__device__ __forceinline__ double dsin(double x) { return sin(x); }
+__device__ __forceinline__ float dcos(float x) { return cosf(x); }
+__device__ __forceinline__ double dcos(double x) { return cos(x); }
+__device__ __forceinline__ float dtanh(float x) { return tanhf(x); }
+__device__ __forceinline__ double dtanh(double x) { return tanh(x); }
+__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double dabs(double x) { return fabs(x); }
+
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
+}
+
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
+}
+
+// jnp.clip(x, lo, hi) = minimum(maximum(x, lo), hi)
+template <typename T>
+__device__ __forceinline__ T clip(T x, T lo, T hi) {
+  return nan_min(nan_max(x, lo), hi);
+}
+
+template <typename T>
+__device__ __forceinline__ T guard_tiny(T x) {
+  return dabs(x) < T(1e-30) ? T(1e-30) : x;
+}
+
+// Exact 2x2 box QP, min 0.5 d'Q d + Qu'd over lo <= d <= hi
+// (_boxqp2_lanes): the 9 active sets in (s0, s1) order, KKT tolerance
+// 1e-9, strict `<` tie-break so the first of equal candidates wins, each
+// candidate clipped after its objective is computed. Q = [[q00, q01],
+// [q01, q11]]. f0/f1 come back 1 where the dimension is free.
+template <typename T>
+__device__ __forceinline__ void boxqp2(T q00, T q01, T q11, T Qu0, T Qu1,
+                                       T lo0, T lo1, T hi0, T hi1,
+                                       T& d0_out, T& d1_out,
+                                       T& f0_out, T& f1_out) {
+  const T tol = T(1e-9);
+  const T det = guard_tiny(q00 * q11 - q01 * q01);
+  T best_obj = T(0), bd0 = T(0), bd1 = T(0), bf0 = T(0), bf1 = T(0);
+#pragma unroll
+  for (int s0 = 0; s0 < 3; ++s0) {
+#pragma unroll
+    for (int s1 = 0; s1 < 3; ++s1) {
+      const T c0 = (s0 == 1) ? lo0 : hi0;   // read only when s0 != 0
+      const T c1 = (s1 == 1) ? lo1 : hi1;
+      T d0, d1;
+      if (s0 == 0 && s1 == 0) {
+        d0 = -(q11 * Qu0 - q01 * Qu1) / det;
+        d1 = -(-q01 * Qu0 + q00 * Qu1) / det;
+      } else if (s0 == 0) {
+        d1 = c1;
+        d0 = -(Qu0 + q01 * d1) / nan_max(q00, T(1e-30));
+      } else if (s1 == 0) {
+        d0 = c0;
+        d1 = -(Qu1 + q01 * d0) / nan_max(q11, T(1e-30));
+      } else {
+        d0 = c0;
+        d1 = c1;
+      }
+      const T g0 = q00 * d0 + q01 * d1 + Qu0;
+      const T g1 = q01 * d0 + q11 * d1 + Qu1;
+      const bool ok0 = (s0 == 0) ? (d0 >= lo0 - tol && d0 <= hi0 + tol)
+                     : (s0 == 1) ? (g0 >= -tol) : (g0 <= tol);
+      const bool ok1 = (s1 == 0) ? (d1 >= lo1 - tol && d1 <= hi1 + tol)
+                     : (s1 == 1) ? (g1 >= -tol) : (g1 <= tol);
+      const T obj = T(0.5) * (d0 * g0 + d1 * g1) + T(0.5) * (Qu0 * d0 + Qu1 * d1);
+      const T objm = (ok0 && ok1) ? obj : T(1e30);
+      const T d0c = clip(d0, lo0, hi0);
+      const T d1c = clip(d1, lo1, hi1);
+      const T f0 = (s0 == 0) ? T(1) : T(0);
+      const T f1 = (s1 == 0) ? T(1) : T(0);
+      if ((s0 == 0 && s1 == 0) || objm < best_obj) {
+        best_obj = objm;
+        bd0 = d0c;
+        bd1 = d1c;
+        bf0 = f0;
+        bf1 = f1;
+      }
+    }
+  }
+  d0_out = bd0;
+  d1_out = bd1;
+  f0_out = bf0;
+  f1_out = bf1;
+}
+
+// Feedback gains on the free set (_gains_lanes): H k = -(b * free) with
+// H = free*Q*free + diag(1 - free), for NC columns b = (B0[j], B1[j]).
+// Divides by the guarded determinant, as the TPU kernels do.
+template <typename T, int NC>
+__device__ __forceinline__ void gains2(T q00, T q01, T q11, T f0, T f1,
+                                       const T (&B0)[NC], const T (&B1)[NC],
+                                       T (&k0)[NC], T (&k1)[NC]) {
+  const T h00 = q00 * f0 * f0 + (T(1) - f0);
+  const T h01 = q01 * f0 * f1;
+  const T h11 = q11 * f1 * f1 + (T(1) - f1);
+  const T deth = guard_tiny(h00 * h11 - h01 * h01);
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    const T b0 = B0[j] * f0;
+    const T b1 = B1[j] * f1;
+    k0[j] = -(h11 * b0 - h01 * b1) / deth;
+    k1[j] = -(-h01 * b0 + h00 * b1) / deth;
+  }
+}
+
+// c = a @ b for an (n,k) and a (k,m) matrix, each entry summed in the
+// order t = 0..k-1 (_mm).
+template <typename T, int NR, int NK, int NM>
+__device__ __forceinline__ void mm(const T (&a)[NR][NK], const T (&b)[NK][NM],
+                                   T (&c)[NR][NM]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+#pragma unroll
+    for (int j = 0; j < NM; ++j) {
+      T acc = a[i][0] * b[0][j];
+#pragma unroll
+      for (int t = 1; t < NK; ++t) acc = acc + a[i][t] * b[t][j];
+      c[i][j] = acc;
+    }
+  }
+}
+
+// I + s*M (_scale_add_eye).
+template <typename T, int NX>
+__device__ __forceinline__ void scale_add_eye(const T (&M)[NX][NX], T s,
+                                              T (&out)[NX][NX]) {
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j)
+      out[i][j] = (i == j) ? s * M[i][j] + T(1) : s * M[i][j];
+  }
+}
+
+// Step sizes of one RK4 step, each folded in double and rounded once, as
+// the TPU kernels fold their python-float constants.
+template <typename T>
+struct RK4Consts {
+  T half_dt;   // 0.5 * dt
+  T dt;
+  T dt6;       // dt / 6
+};
+
+// Exact (Ad, Bd) of one RK4 step by the chain rule through its four stages
+// (_rk4_jac_lanes): f(x, u, xdot) is the model and jac(x, u, A, B) its
+// continuous-time Jacobians.
+template <typename T, int NX, int NU, typename F, typename J>
+__device__ __forceinline__ void rk4_jac(F f, J jac, const T (&x)[NX],
+                                        const T (&u)[NU],
+                                        const RK4Consts<T>& c,
+                                        T (&Ad)[NX][NX], T (&Bd)[NX][NU]) {
+  T k[NX], x2[NX], x3[NX], x4[NX];
+  f(x, u, k);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x2[i] = x[i] + c.half_dt * k[i];
+  f(x2, u, k);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x3[i] = x[i] + c.half_dt * k[i];
+  f(x3, u, k);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x4[i] = x[i] + c.dt * k[i];
+
+  T A1[NX][NX], B1[NX][NU], Aj[NX][NX], Bj[NX][NU];
+  T E[NX][NX], Sx[NX][NX], Su[NX][NU], dkx[NX][NX], dku[NX][NU];
+  jac(x, u, A1, B1);
+  // Running sums S = A1 + 2 dk2 + 2 dk3 + dk4, accumulated in that order.
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Sx[i][j] = A1[i][j];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Su[i][j] = B1[i][j];
+  }
+  // dk2x = A2 (I + dt/2 A1), dk2u = A2 (dt/2 B1) + B2
+  jac(x2, u, Aj, Bj);
+  scale_add_eye(A1, c.half_dt, E);
+  mm(Aj, E, dkx);
+  T sB[NX][NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) sB[i][j] = c.half_dt * B1[i][j];
+  mm(Aj, sB, dku);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) dku[i][j] = dku[i][j] + Bj[i][j];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Sx[i][j] = Sx[i][j] + T(2) * dkx[i][j];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Su[i][j] = Su[i][j] + T(2) * dku[i][j];
+  }
+  // dk3x = A3 (I + dt/2 dk2x), dk3u = A3 (dt/2 dk2u) + B3
+  jac(x3, u, Aj, Bj);
+  scale_add_eye(dkx, c.half_dt, E);
+  mm(Aj, E, dkx);
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) sB[i][j] = c.half_dt * dku[i][j];
+  mm(Aj, sB, dku);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) dku[i][j] = dku[i][j] + Bj[i][j];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Sx[i][j] = Sx[i][j] + T(2) * dkx[i][j];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Su[i][j] = Su[i][j] + T(2) * dku[i][j];
+  }
+  // dk4x = A4 (I + dt dk3x), dk4u = A4 (dt dk3u) + B4
+  jac(x4, u, Aj, Bj);
+  scale_add_eye(dkx, c.dt, E);
+  mm(Aj, E, dkx);
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) sB[i][j] = c.dt * dku[i][j];
+  mm(Aj, sB, dku);
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) dku[i][j] = dku[i][j] + Bj[i][j];
+#pragma unroll
+    for (int j = 0; j < NX; ++j) Sx[i][j] = Sx[i][j] + dkx[i][j];
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Su[i][j] = Su[i][j] + dku[i][j];
+  }
+  scale_add_eye(Sx, c.dt6, Ad);
+#pragma unroll
+  for (int i = 0; i < NX; ++i)
+#pragma unroll
+    for (int j = 0; j < NU; ++j) Bd[i][j] = c.dt6 * Su[i][j];
+}
+
+}  // namespace dart

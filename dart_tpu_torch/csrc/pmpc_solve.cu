@@ -11,6 +11,8 @@
 //
 // Layout: every array is batch-last, element (i, lane) at i * B + lane, so
 // neighbouring threads touch neighbouring addresses and loads coalesce.
+// The per-lane helpers (box QP, NaN-propagating max/min/clip) are in
+// lanes.cuh, shared with riccati.cu and rmpc_solve.cu.
 //
 // What bounds it on this card, and what the design does about it:
 // - Per-lane state is far larger than the register file. At N = 15 a lane
@@ -43,13 +45,13 @@
 
 #include <cmath>
 
+#include "lanes.cuh"
+
 namespace {
 
+using namespace dart;
+
 constexpr int kThreads = 128;
-constexpr int kMaxAlphas = 16;
-// Returned before any launch; every other nonzero code is a cudaError_t.
-constexpr int kBadHorizon = -1;   // N has no instance in launch()
-constexpr int kBadBudget = -2;    // n_iters < 1, or n_alphas not in [1, 16]
 
 template <typename T>
 struct Consts {
@@ -61,92 +63,6 @@ struct Consts {
   T u_hi;     // +u_bound
   T alpha[kMaxAlphas];   // 0.6^i
 };
-
-__device__ __forceinline__ float dsin(float x) { return sinf(x); }
-__device__ __forceinline__ double dsin(double x) { return sin(x); }
-__device__ __forceinline__ float dcos(float x) { return cosf(x); }
-__device__ __forceinline__ double dcos(double x) { return cos(x); }
-__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
-__device__ __forceinline__ double dabs(double x) { return fabs(x); }
-
-template <typename T>
-__device__ __forceinline__ T nan_max(T a, T b) {
-  return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
-
-template <typename T>
-__device__ __forceinline__ T nan_min(T a, T b) {
-  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
-}
-
-// jnp.clip(x, lo, hi) = minimum(maximum(x, lo), hi)
-template <typename T>
-__device__ __forceinline__ T clip(T x, T lo, T hi) {
-  return nan_min(nan_max(x, lo), hi);
-}
-
-template <typename T>
-__device__ __forceinline__ T guard_tiny(T x) {
-  return dabs(x) < T(1e-30) ? T(1e-30) : x;
-}
-
-// Exact 2x2 box QP (dart_tpu/ops/pallas/riccati.py::_boxqp2_lanes): the 9
-// active sets in (s0, s1) order, KKT tolerance 1e-9, strict `<` tie-break,
-// each candidate clipped after its objective is computed.
-template <typename T>
-__device__ __forceinline__ void boxqp2(T q00, T q01, T q11, T Qu0, T Qu1,
-                                       T lo0, T lo1, T hi0, T hi1,
-                                       T& d0_out, T& d1_out,
-                                       T& f0_out, T& f1_out) {
-  const T tol = T(1e-9);
-  const T det = guard_tiny(q00 * q11 - q01 * q01);
-  T best_obj = T(0), bd0 = T(0), bd1 = T(0), bf0 = T(0), bf1 = T(0);
-#pragma unroll
-  for (int s0 = 0; s0 < 3; ++s0) {
-#pragma unroll
-    for (int s1 = 0; s1 < 3; ++s1) {
-      const T c0 = (s0 == 1) ? lo0 : hi0;   // read only when s0 != 0
-      const T c1 = (s1 == 1) ? lo1 : hi1;
-      T d0, d1;
-      if (s0 == 0 && s1 == 0) {
-        d0 = -(q11 * Qu0 - q01 * Qu1) / det;
-        d1 = -(-q01 * Qu0 + q00 * Qu1) / det;
-      } else if (s0 == 0) {
-        d1 = c1;
-        d0 = -(Qu0 + q01 * d1) / nan_max(q00, T(1e-30));
-      } else if (s1 == 0) {
-        d0 = c0;
-        d1 = -(Qu1 + q01 * d0) / nan_max(q11, T(1e-30));
-      } else {
-        d0 = c0;
-        d1 = c1;
-      }
-      const T g0 = q00 * d0 + q01 * d1 + Qu0;
-      const T g1 = q01 * d0 + q11 * d1 + Qu1;
-      const bool ok0 = (s0 == 0) ? (d0 >= lo0 - tol && d0 <= hi0 + tol)
-                     : (s0 == 1) ? (g0 >= -tol) : (g0 <= tol);
-      const bool ok1 = (s1 == 0) ? (d1 >= lo1 - tol && d1 <= hi1 + tol)
-                     : (s1 == 1) ? (g1 >= -tol) : (g1 <= tol);
-      const T obj = T(0.5) * (d0 * g0 + d1 * g1) + T(0.5) * (Qu0 * d0 + Qu1 * d1);
-      const T objm = (ok0 && ok1) ? obj : T(1e30);
-      const T d0c = clip(d0, lo0, hi0);
-      const T d1c = clip(d1, lo1, hi1);
-      const T f0 = (s0 == 0) ? T(1) : T(0);
-      const T f1 = (s1 == 0) ? T(1) : T(0);
-      if ((s0 == 0 && s1 == 0) || objm < best_obj) {
-        best_obj = objm;
-        bd0 = d0c;
-        bd1 = d1c;
-        bf0 = f0;
-        bf1 = f1;
-      }
-    }
-  }
-  d0_out = bd0;
-  d1_out = bd1;
-  f0_out = bf0;
-  f1_out = bf1;
-}
 
 template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
@@ -418,7 +334,7 @@ int launch(const T* ad3, const T* sd4, const T* wdiag, const T* rw,
           n_alphas, c);
       break;
     default:
-      return kBadHorizon;
+      return kBadShape;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,10 +1,12 @@
 """Build `dart_tpu_torch/csrc/*.cu` with nvcc at first use and load it.
 
-The sources compile into one shared library with a plain C interface,
-bound with ctypes (no PyTorch headers, so a build takes seconds). The
-output lands in `build/dart_tpu_torch/<hash of sources and flags>/` beside
-the package, so a changed source never loads a stale library. Only the
-sources in the checkout and the installed CUDA toolkit are used.
+Each source compiles to an object in its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, bound with ctypes (no PyTorch headers, so a build takes
+seconds). The output lands in `build/dart_tpu_torch/<hash of sources and
+flags>/` beside the package, so a changed source never loads a stale
+library. Only the sources in the checkout and the installed CUDA toolkit
+are used.
 """
 
 from __future__ import annotations
@@ -23,10 +25,11 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR.parent / "build" / "dart_tpu_torch"
 LIB_NAME = "libdart_tpu_torch_kernels.so"
-# Codes the C entry points return before launching (see csrc/*.cu).
-BAD_HORIZON, BAD_BUDGET = -1, -2
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Codes the C entry points return before launching (csrc/lanes.cuh).
+BAD_SHAPE, BAD_BUDGET = -1, -2
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 
 def _sources() -> list[Path]:
@@ -62,24 +65,33 @@ def build() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, log_path.read_text() if log_path.exists() else ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = tmp.name
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp_path, *cu],
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for src, obj in zip(cu, objs)]
+        logs = []
+        for src, proc in zip(cu, procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+        failed = [src.name for src, proc in zip(cu, procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp_lib), *map(str, objs)],
             capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{proc.stderr}\n{proc.stdout}")
-        os.replace(tmp_path, lib)
-    finally:
-        if os.path.exists(tmp_path):
-            os.unlink(tmp_path)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):"
+                               f"\n{link.stderr}\n{link.stdout}")
+        os.replace(tmp_lib, lib)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log = "\n".join(logs)
     log_path.write_text(log)
     return lib, seconds, log
 
@@ -92,11 +104,19 @@ def library() -> ctypes.CDLL:
     """The built kernel library, with every entry point's types declared."""
     path, _, _ = build()
     lib = ctypes.CDLL(str(path))
-    for name in ("pmpc_solve_f32", "pmpc_solve_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [_PTR] * 10 + [ctypes.c_int] * 4 + \
-            [ctypes.c_double] * 3 + [_PTR]
-        fn.restype = ctypes.c_int
+    signatures = {
+        "pmpc_solve": [_PTR] * 10 + [ctypes.c_int] * 4
+        + [ctypes.c_double] * 3 + [_PTR],
+        "riccati": [_PTR] * 13 + [ctypes.c_int] * 3 + [ctypes.c_double] * 4
+        + [_PTR],
+        "rmpc_solve": [_PTR] * 9 + [ctypes.c_int] * 5
+        + [ctypes.c_double] * 9 + [_PTR],
+    }
+    for base, argtypes in signatures.items():
+        for suffix in ("_f32", "_f64"):
+            fn = getattr(lib, base + suffix)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.dart_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dart_cuda_error_string.restype = ctypes.c_char_p
     return lib

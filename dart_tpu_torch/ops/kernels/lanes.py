@@ -3,7 +3,9 @@ versions (port of the helpers in `dart_tpu.ops.pallas.riccati` and
 `dart_tpu.ops.pallas.pmpc_solve._diag_embed`).
 
 Every matrix entry is a lane vector: a (n, m, L) tensor holds one n x m
-matrix per scenario lane, with the batch on the last axis.
+matrix per scenario lane, with the batch on the last axis. Products sum in
+the order t = 0..k-1, as the Pallas helpers do, so the plain versions
+repeat the TPU kernels' arithmetic operation for operation.
 """
 
 from __future__ import annotations
@@ -11,6 +13,84 @@ from __future__ import annotations
 import torch
 
 _BIG = 1e30
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(n,k,L) @ (k,m,L) -> (n,m,L): row i is sum_t a[i,t] * b[t]."""
+    n, k = a.shape[0], a.shape[1]
+    if b.shape[0] != k:
+        raise ValueError(f"_mm: inner sizes {k} and {b.shape[0]} differ")
+    rows = []
+    for i in range(n):
+        acc = a[i, 0] * b[0]
+        for t in range(1, k):
+            acc = acc + a[i, t] * b[t]
+        rows.append(acc)
+    return torch.stack(rows)
+
+
+def _mT(a: torch.Tensor) -> torch.Tensor:
+    return torch.swapaxes(a, 0, 1)
+
+
+def _add_diag(M: torch.Tensor, val) -> torch.Tensor:
+    """(n,n,L) + val on the diagonal; val is a scalar or an (L,) lane."""
+    n = M.shape[0]
+    return torch.stack([torch.stack([M[i, j] + val if i == j else M[i, j]
+                                     for j in range(n)]) for i in range(n)])
+
+
+def _scale_add_eye(M: torch.Tensor, s) -> torch.Tensor:
+    """I + s*M for (n,n,L)."""
+    n = M.shape[0]
+    return torch.stack([torch.stack([s * M[i, j] + 1.0 if i == j
+                                     else s * M[i, j] for j in range(n)])
+                        for i in range(n)])
+
+
+def _rk4_jac_lanes(f, jac, x, v, dt: float):
+    """Exact (Ad, Bd) of an RK4 step in lane algebra (the chain rule of
+    `models.dynamics.rk4_jac`): f(x, v) -> (n,L), jac(x, v) -> (A (n,n,L),
+    B (n,m,L)). dt is a python float, folded in double as the TPU kernel
+    folds it."""
+    k1 = f(x, v)
+    x2 = x + 0.5 * dt * k1
+    k2 = f(x2, v)
+    x3 = x + 0.5 * dt * k2
+    x4 = x + dt * f(x3, v)
+    A1, B1 = jac(x, v)
+    A2, B2 = jac(x2, v)
+    A3, B3 = jac(x3, v)
+    A4, B4 = jac(x4, v)
+    dk2x = _mm(A2, _scale_add_eye(A1, 0.5 * dt))
+    dk2u = _mm(A2, 0.5 * dt * B1) + B2
+    dk3x = _mm(A3, _scale_add_eye(dk2x, 0.5 * dt))
+    dk3u = _mm(A3, 0.5 * dt * dk2u) + B3
+    dk4x = _mm(A4, _scale_add_eye(dk3x, dt))
+    dk4u = _mm(A4, dt * dk3u) + B4
+    Ad = _scale_add_eye(A1 + 2.0 * dk2x + 2.0 * dk3x + dk4x, dt / 6.0)
+    Bd = dt / 6.0 * (B1 + 2.0 * dk2u + 2.0 * dk3u + dk4u)
+    return Ad, Bd
+
+
+def _gains_lanes(Quu: torch.Tensor, free: torch.Tensor, Qux_cols):
+    """Feedback gains on the free set: solve H K = -(Qux * free) column by
+    column, H = free*Quu*free + diag(1 - free). Quu (2,2,L), free (2,L),
+    Qux_cols an iterable of (2,L) columns. Returns a list of (k0, k1)."""
+    f0, f1 = free[0], free[1]
+    h00 = Quu[0, 0] * f0 * f0 + (1.0 - f0)
+    h01 = Quu[0, 1] * f0 * f1
+    h11 = Quu[1, 1] * f1 * f1 + (1.0 - f1)
+    deth = h00 * h11 - h01 * h01
+    deth = torch.where(torch.abs(deth) < 1e-30, torch.full_like(deth, 1e-30),
+                       deth)
+    out = []
+    for b0, b1 in Qux_cols:
+        b0 = b0 * f0
+        b1 = b1 * f1
+        out.append((-(h11 * b0 - h01 * b1) / deth,
+                    -(-h01 * b0 + h00 * b1) / deth))
+    return out
 
 
 def _mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -29,11 +29,13 @@ from dart_tpu_torch.ops.kernels.lanes import (_add_diag_vec, _boxqp2_lanes,
 
 
 def _solve_lanes(ad, sd, wdiag, rw, target, z0, V, u_lo, u_hi, dt, g,
-                 n_iters, n_alphas):
+                 n_iters, n_alphas, stats=None):
     """Plain version of the kernel body `_pmpc_kernel`, on (…, L) lanes.
 
     ad (3,L), sd (4,L), wdiag/target/z0 (6,L), rw (L,), V (N,2,L),
-    u_lo/u_hi (2,L). Returns V (N,2,L), cost (L,), gnorm (L,).
+    u_lo/u_hi (2,L). Returns V (N,2,L), cost (L,), gnorm (L,). A `stats`
+    dict gets "trials" (L,): the line-search trials the kernel runs per
+    lane (it stops at the first accepted alpha and skips done lanes).
     """
     N = V.shape[0]
     a_, b_, g_ = ad[0], ad[1], ad[2]
@@ -176,6 +178,8 @@ def _solve_lanes(ad, sd, wdiag, rw, target, z0, V, u_lo, u_hi, dt, g,
         accepted = done                     # done lanes never move
         Z_best, V_best, c_best = Z, V, cost
         for al in alphas:
+            if stats is not None:
+                stats["trials"] = stats["trials"] + (~accepted).long()
             x = z0
             zs_new = [z0]
             vs_new = []
@@ -201,6 +205,8 @@ def _solve_lanes(ad, sd, wdiag, rw, target, z0, V, u_lo, u_hi, dt, g,
 
     done = torch.zeros_like(rw, dtype=torch.bool)
     gnorm = torch.zeros_like(rw)
+    if stats is not None:
+        stats["trials"] = torch.zeros_like(rw, dtype=torch.long)
     for _ in range(n_iters):
         Z, V, cost, done, gnorm = iteration(Z, V, cost, done)
     return V, cost, gnorm
@@ -225,6 +231,20 @@ def flops_per_solve(N: int = 15, n_iters: int = 2, n_alphas: int = 3) -> int:
     backward = 1190 * N
     forward = n_alphas * (75 * N + 80)
     return rollout + n_iters * (backward + forward + 10)
+
+
+def work(N: int, n_iters: int, B: int, trials: int,
+         itemsize: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call over B lanes that ran `trials`
+    line-search trials in all (`stats["trials"].sum()` of the plain
+    version), for the roofline bound. FLOPs as in `flops_per_solve`, with
+    the trials counted as run instead of n_alphas per iteration. Bytes:
+    every input read once (ad3, sd4, wdiag, rw, target, z0, V0), every
+    output written once (V, cost, gnorm)."""
+    flops = B * (50 * N + 23 + n_iters * (1190 * N + 10)) \
+        + trials * (75 * N + 80)
+    values = B * (3 + 4 + 6 + 1 + 6 + 6 + 2 * N) + B * (2 * N + 2)
+    return flops, values * itemsize
 
 
 def structure_residual(Ad: torch.Tensor, Sd: torch.Tensor,
@@ -287,16 +307,18 @@ def _bad_structure_to_inf(bad, cost, gnorm):
 
 def pmpc_solve_reference(Ad, Sd, wdiag, rw, target, z0, V0, dt: float,
                          u_bound: float = 0.6, g: float = -9.81,
-                         n_iters: int = 3, n_alphas: int = 4):
+                         n_iters: int = 3, n_alphas: int = 4, stats=None):
     """Plain PyTorch version of `pmpc_solve`, on any device.
-    Returns (V (N,2,B), cost (B,), gnorm (B,))."""
+    Returns (V (N,2,B), cost (B,), gnorm (B,)); `stats` as in
+    `_solve_lanes`."""
     _check(Ad, Sd, wdiag, rw, target, z0, V0)
     ad3, sd4 = _free_entries(Ad, Sd)
     B = V0.shape[-1]
     lo = torch.full((2, B), -u_bound, dtype=V0.dtype, device=V0.device)
     hi = torch.full((2, B), u_bound, dtype=V0.dtype, device=V0.device)
     V, cost, gnorm = _solve_lanes(ad3, sd4, wdiag, rw, target, z0, V0, lo,
-                                  hi, dt, float(g), n_iters, n_alphas)
+                                  hi, dt, float(g), n_iters, n_alphas,
+                                  stats)
     bad = structure_residual(Ad, Sd, dt) > 1e-6
     cost, gnorm = _bad_structure_to_inf(bad, cost, gnorm)
     return V, cost, gnorm
@@ -333,7 +355,7 @@ def pmpc_solve(Ad, Sd, wdiag, rw, target, z0, V0, dt: float,
                    (ad3, sd4, wdiag, rw, target, z0, V0, V, cost, gnorm)),
                  B, N, n_iters, n_alphas, float(dt), float(u_bound),
                  float(g), ctypes.c_void_p(stream))
-    if err == _build.BAD_HORIZON:
+    if err == _build.BAD_SHAPE:
         raise NotImplementedError(
             f"the CUDA kernel has no instance for N={N}: add one to "
             "launch() in csrc/pmpc_solve.cu")

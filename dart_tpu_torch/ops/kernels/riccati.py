@@ -1,0 +1,174 @@
+"""Batched box-DDP Riccati backward pass in one launch (port of
+`dart_tpu.ops.pallas.riccati.riccati_backward_pallas`).
+
+Per stage: the Q expansion (Qxx from the unregularised Vxx, Qux/Quu from
+Vxx + reg I, Quu symmetrised with a 1e-9 jitter), the exact 2x2 box QP
+over the control step, the feedback gains on the free set, and the
+symmetric value update. nu == 2 (the tray tilt); nz is 6 (PMPC, RMPC's
+augmented state) or 10 (LMPC's augmented state).
+
+`riccati_backward` keeps `riccati_backward_pallas`'s batch-last layout:
+A (N,nz,nz,B), B (N,nz,2,B), lx (N,nz,B), lu (N,2,B), lxx (N,nz,nz,B),
+lux (N,2,nz,B), luu (N,2,2,B), gx (nz,B), gxx (nz,nz,B), V (N,2,B);
+u_lo/u_hi two bounds each; reg a scalar or (B,). Returns D (N,2,B) and
+K (N,2,nz,B). On CUDA tensors it launches `csrc/riccati.cu` (one thread
+per lane); on CPU tensors it runs `riccati_backward_reference`, the plain
+PyTorch version of `_backward_kernel`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from dart_tpu_torch.ops.kernels import _build
+from dart_tpu_torch.ops.kernels.lanes import (_add_diag, _boxqp2_lanes,
+                                              _gains_lanes, _mm, _mT, _mv)
+
+NZ_INSTANCES = (6, 10)
+
+
+def _backward_lanes(A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, lo, hi, reg):
+    """Plain version of the kernel body `_backward_kernel`, on (..., L)
+    lanes; lo/hi (2,L), reg (L,)."""
+    N, nz = A.shape[0], A.shape[1]
+    Vx, Vxx = gx, gxx
+    Ds, Ks = [None] * N, [None] * N
+    for k in range(N - 1, -1, -1):
+        A_k, B_k = A[k], Bm[k]
+        Qx = lx[k] + _mv(_mT(A_k), Vx)
+        Qu = lu[k] + _mv(_mT(B_k), Vx)
+        Vxx_reg = _add_diag(Vxx, reg)
+        Qxx = lxx[k] + _mm(_mT(A_k), _mm(Vxx, A_k))
+        Qux = lux[k] + _mm(_mT(B_k), _mm(Vxx_reg, A_k))
+        Quu = luu[k] + _mm(_mT(B_k), _mm(Vxx_reg, B_k))
+        Quu = _add_diag(0.5 * (Quu + _mT(Quu)), 1e-9)
+
+        d, free = _boxqp2_lanes(Quu, Qu, lo - V[k], hi - V[k])
+        cols = _gains_lanes(Quu, free, [(Qux[0, j], Qux[1, j])
+                                        for j in range(nz)])
+        K = torch.stack([torch.stack([c[0] for c in cols]),
+                         torch.stack([c[1] for c in cols])])  # (2, nz, L)
+
+        Quu_d = _mv(Quu, d)
+        Vx = Qx + _mv(_mT(K), Quu_d) + _mv(_mT(K), Qu) + _mv(_mT(Qux), d)
+        KT_Quu = _mm(_mT(K), Quu)
+        Vxx = (Qxx + _mm(KT_Quu, K) + _mm(_mT(K), Qux)
+               + _mm(_mT(Qux), K))
+        Vxx = 0.5 * (Vxx + _mT(Vxx))
+        Ds[k], Ks[k] = d, K
+    return torch.stack(Ds), torch.stack(Ks)
+
+
+def _check(A, B, lx, lu, lxx, lux, luu, gx, gxx, V):
+    if A.dim() != 4:
+        raise ValueError(f"A must be (N, nz, nz, B), got {tuple(A.shape)}")
+    N, nz, _, Bt = A.shape
+    want = {"A": (N, nz, nz, Bt), "B": (N, nz, 2, Bt), "lx": (N, nz, Bt),
+            "lu": (N, 2, Bt), "lxx": (N, nz, nz, Bt), "lux": (N, 2, nz, Bt),
+            "luu": (N, 2, 2, Bt), "gx": (nz, Bt), "gxx": (nz, nz, Bt),
+            "V": (N, 2, Bt)}
+    got = {"A": A, "B": B, "lx": lx, "lu": lu, "lxx": lxx, "lux": lux,
+           "luu": luu, "gx": gx, "gxx": gxx, "V": V}
+    if A.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"riccati_backward takes float32 or float64, "
+                        f"got {A.dtype}")
+    for name, t in got.items():
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, "
+                             f"got {tuple(t.shape)}")
+        if t.dtype != A.dtype:
+            raise TypeError(f"{name} is {t.dtype}, A is {A.dtype}")
+        if t.device != A.device:
+            raise ValueError(f"{name} is on {t.device}, A on {A.device}")
+    return N, nz, Bt
+
+
+def _bounds(u_lo, u_hi) -> tuple[float, float, float, float]:
+    lo = [float(x) for x in u_lo]
+    hi = [float(x) for x in u_hi]
+    if len(lo) != 2 or len(hi) != 2:
+        raise ValueError("u_lo and u_hi must hold two bounds each")
+    return lo[0], lo[1], hi[0], hi[1]
+
+
+def _reg_lanes(reg, Bt: int, like: torch.Tensor) -> torch.Tensor:
+    """reg as a contiguous (B,) lane vector of A's dtype and device."""
+    r = torch.as_tensor(reg, dtype=like.dtype, device=like.device)
+    if r.dim() == 0:
+        return r.expand(Bt).contiguous()
+    if tuple(r.shape) != (Bt,):
+        raise ValueError(f"reg must be a scalar or ({Bt},), "
+                         f"got {tuple(r.shape)}")
+    return r.contiguous()
+
+
+def riccati_backward_reference(A, B, lx, lu, lxx, lux, luu, gx, gxx, V,
+                               u_lo, u_hi, reg):
+    """Plain PyTorch version of `riccati_backward`, on any device."""
+    _, _, Bt = _check(A, B, lx, lu, lxx, lux, luu, gx, gxx, V)
+    lo0, lo1, hi0, hi1 = _bounds(u_lo, u_hi)
+    lo = torch.tensor([lo0, lo1], dtype=A.dtype, device=A.device)[:, None]
+    hi = torch.tensor([hi0, hi1], dtype=A.dtype, device=A.device)[:, None]
+    return _backward_lanes(A, B, lx, lu, lxx, lux, luu, gx, gxx, V,
+                           lo.expand(2, Bt), hi.expand(2, Bt),
+                           _reg_lanes(reg, Bt, A))
+
+
+def riccati_backward(A, B, lx, lu, lxx, lux, luu, gx, gxx, V, u_lo, u_hi,
+                     reg):
+    """Batched backward pass, batch-last. Returns (D (N,2,B), K (N,2,nz,B)).
+
+    CPU tensors run the plain version. CUDA tensors launch the kernel and
+    add one to `riccati_backward.launches`; an nz without an instance
+    (`NZ_INSTANCES`) or a failed launch raises.
+    """
+    if A.device.type == "cpu":
+        return riccati_backward_reference(A, B, lx, lu, lxx, lux, luu, gx,
+                                          gxx, V, u_lo, u_hi, reg)
+    N, nz, Bt = _check(A, B, lx, lu, lxx, lux, luu, gx, gxx, V)
+    if A.device.type != "cuda":
+        raise ValueError(f"riccati_backward runs on cpu or cuda, "
+                         f"not {A.device}")
+    bounds = _bounds(u_lo, u_hi)
+    ins = [t.contiguous() for t in (A, B, lx, lu, lxx, lux, luu, gx, gxx, V)]
+    ins.append(_reg_lanes(reg, Bt, A))
+    D = torch.empty((N, 2, Bt), dtype=A.dtype, device=A.device)
+    K = torch.empty((N, 2, nz, Bt), dtype=A.dtype, device=A.device)
+    lib = _build.library()
+    fn = lib.riccati_f32 if A.dtype == torch.float32 else lib.riccati_f64
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    with torch.cuda.device(A.device):
+        err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in (*ins, D, K)),
+                 Bt, N, nz, *bounds, ctypes.c_void_p(stream))
+    if err == _build.BAD_SHAPE:
+        raise NotImplementedError(
+            f"the CUDA kernel has no instance for nz={nz} (it has "
+            f"{NZ_INSTANCES}): add one to launch() in csrc/riccati.cu")
+    if err != 0:
+        raise RuntimeError(f"riccati_backward kernel launch failed: "
+                           f"{_build.error_string(err)} (code {err})")
+    riccati_backward.launches += 1
+    return D, K
+
+
+riccati_backward.launches = 0
+
+
+def work(N: int, nz: int, B: int, itemsize: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call at these shapes, for the roofline bound.
+
+    Bytes: every input read once, every output written once. Per lane and
+    stage that is 2 nz^2 + 5 nz + 8 values in (A, B, lx, lu, lxx, lux,
+    luu, V) and 2 + 2 nz out (D, K); per lane once nz + nz^2 (gx, gxx) and
+    one reg. FLOPs per stage, counting the dense algebra as written: the
+    three nz^3 products (Vxx A, A^T (Vxx A), Vxx_reg A) 6 nz^3; the other
+    products, adds and the symmetrisations ~21 nz^2 + 40 nz; the 9-way box
+    QP ~150 and the 2x2 gain solve ~20.
+    """
+    per_stage_in = 2 * nz * nz + 5 * nz + 8
+    per_stage_out = 2 + 2 * nz
+    values = B * (N * (per_stage_in + per_stage_out) + nz + nz * nz + 1)
+    flops = B * N * (6 * nz ** 3 + 21 * nz * nz + 40 * nz + 170)
+    return flops, values * itemsize

@@ -12,7 +12,8 @@ from typing import Any, Callable
 
 import torch
 
-from dart_tpu_torch.control.mpc import PMPCBatch, PMPCWeights
+from dart_tpu_torch.control.mpc import (PMPCBatch, PMPCWeights, RMPCBatch,
+                                        RMPCWeights, RMPC_DEFAULT_WEIGHTS)
 from dart_tpu_torch.models import dynamics as dyn
 
 
@@ -24,6 +25,19 @@ def pmpc_solve_fn(ctlr: PMPCBatch, targets: torch.Tensor,
 
     def solve_fn(carry, x):
         carry, u, _ = ctlr.solve(carry, x, targets, params, weights)
+        return carry, u
+
+    return solve_fn
+
+
+def rmpc_solve_fn(ctlr: RMPCBatch, targets4: torch.Tensor,
+                  weights: RMPCWeights = RMPC_DEFAULT_WEIGHTS):
+    """`ctlr.solve_batched` as the `solve_fn(carry, x) -> (carry, u)` of
+    `run_batch_closed_loop`. The controller observes [px, vx, py, vy] =
+    x[:, :4] of the analytic plant's state; u is the applied tilt."""
+
+    def solve_fn(carry, x):
+        carry, u, _ = ctlr.solve_batched(carry, x[:, :4], targets4, weights)
         return carry, u
 
     return solve_fn

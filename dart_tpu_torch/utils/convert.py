@@ -1,10 +1,12 @@
 """Carry state between the JAX package and the port.
 
-The PMPC path has no trained weights: what crosses over are the tuning
-tables, the per-lane params and cost data, the warm-start carry and the
-solve diagnostics, all NamedTuples with the same names and fields in both
-packages. Arrays cross as numpy; python floats stay python floats (so a
-static gravity stays static).
+The PMPC and RMPC paths have no trained weights: what crosses over are
+the tuning tables, the per-lane params and cost data, the carries (the
+RLS estimates, the governor's reference and the stiction integral
+included) and the solve diagnostics, all NamedTuples with the same names
+and fields in both packages; NamedTuples nest (`RMPCCarry` holds two
+`RLSState`s). Arrays cross as numpy; python floats stay python floats (so
+a static gravity stays static), and None stays None.
 """
 
 from __future__ import annotations
@@ -14,12 +16,17 @@ from typing import Any
 import numpy as np
 import torch
 
-from dart_tpu_torch.control.mpc import PMPCCarry, PMPCWeights, SolveDiag
-from dart_tpu_torch.models.dynamics import PMPCParams
-from dart_tpu_torch.solver.ocp import PMPCAux
+from dart_tpu_torch.adapt.rls import RLSState
+from dart_tpu_torch.control.mpc import (PMPCCarry, PMPCWeights, RMPCCarry,
+                                        RMPCWeights, SolveDiag)
+from dart_tpu_torch.models.dynamics import PMPCParams, RMPCParams
+from dart_tpu_torch.solver.ilqr import ILQRSolution
+from dart_tpu_torch.solver.ocp import PMPCAux, RMPCAux
 
 _TUPLES = {cls.__name__: cls for cls in
-           (PMPCParams, PMPCAux, PMPCWeights, PMPCCarry, SolveDiag)}
+           (PMPCParams, PMPCAux, PMPCWeights, PMPCCarry, SolveDiag,
+            RMPCParams, RMPCAux, RMPCWeights, RMPCCarry, RLSState,
+            ILQRSolution)}
 
 
 def _is_namedtuple(x) -> bool:
@@ -38,7 +45,7 @@ def from_jax(tree: Any, device: torch.device | str,
             raise TypeError(f"no port counterpart for NamedTuple {name}")
         return _TUPLES[name](*(from_jax(leaf, device, dtype)
                                for leaf in tree))
-    if isinstance(tree, (bool, int, float)):
+    if tree is None or isinstance(tree, (bool, int, float)):
         return tree
     t = torch.tensor(np.asarray(tree), device=device)
     return t.to(dtype) if dtype is not None and t.is_floating_point() else t

@@ -173,21 +173,37 @@ def test_projected_grad_norm_matches_jax(dtype):
     assert float(got.max()) > 0.01      # V is far from stationary here
 
 
-def test_unported_branches_raise():
-    ctlr = tmpc.PMPCBatch(N=N, dt=DT)
-    w = tmpc.PMPC_WEIGHTS["general"]
-    x = torch.zeros((100, 6), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="Riccati"):
-        ctlr.solve(ctlr.init_carry(100, torch.float64, "cpu"), x, x,
-                   tdyn.PMPCParams(mu=0.1, dt=DT), w)
-    x = torch.zeros((B, 6), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="python float"):
-        ctlr.solve(ctlr.init_carry(B, torch.float64, "cpu"), x, x,
-                   tdyn.PMPCParams(mu=0.1, g=torch.tensor(-9.81), dt=DT), w)
-    with pytest.raises(NotImplementedError, match="solve_batch_fast"):
-        tmpc.PMPCBatch(N=N, use_kernel=False)
-    with pytest.raises(NotImplementedError, match="ilqr.solve_batch"):
-        tmpc.PMPCBatch(N=N, fast=False)
+@pytest.mark.parametrize("case", ["B=100", "tensor g", "use_kernel=False",
+                                  "fast=False"])
+def test_fallback_branches_match_jax(case):
+    """The branches off the whole-solve kernel, each against JAX's own:
+    B % 128 != 0 and use_kernel=False take `pmpc_fast.solve_batch_fast`, a
+    gravity tensor and fast=False the generic `ilqr.solve_batch`. Both
+    run the Riccati backward pass (its plain version on the CPU, JAX's XLA
+    scan), in float64 at the same budget."""
+    states, tgts = _scenario(5, spread=0.1)
+    Bc = 100 if case == "B=100" else B
+    states, tgts = states[:Bc], tgts[:Bc]
+    kw = dict(N=N, dt=DT, use_kernel=case != "use_kernel=False",
+              fast=case != "fast=False")
+    g = -9.81
+    jg, tg = (jnp.asarray(g), torch.tensor(g, dtype=torch.float64)) \
+        if case == "tensor g" else (g, g)
+    V0 = np.random.default_rng(6).uniform(-0.3, 0.3, (Bc, N, 2))
+    jctlr = jmpc.PMPCBatch(**kw)
+    w = jmpc.PMPC_WEIGHTS["general"]
+    j_out = jax.jit(lambda V: jctlr.solve(
+        jmpc.PMPCCarry(V=V), jnp.asarray(states), jnp.asarray(tgts),
+        jdyn.PMPCParams(mu=jnp.asarray(0.1), g=jg, dt=DT), w))(
+            jnp.asarray(V0))
+    tctlr = tmpc.PMPCBatch(**kw)
+    t_out = tctlr.solve(tmpc.PMPCCarry(V=torch.from_numpy(V0)),
+                        torch.from_numpy(states), torch.from_numpy(tgts),
+                        tdyn.PMPCParams(mu=0.1, g=tg, dt=DT),
+                        tmpc.PMPC_WEIGHTS["general"])
+    _assert_same(t_out, j_out)
+    # The solve moved the warm start: the branch really iterated.
+    assert float(np.abs(t_out[0].V.numpy()[:, :-1] - V0[:, 1:]).max()) > 1e-3
 
 
 def test_weight_tables_and_schedule_match_jax():

@@ -150,6 +150,25 @@ def test_flops_per_solve_equals_jax(N_, n_iters, n_alphas):
         jps.flops_per_solve(N_, n_iters, n_alphas)
 
 
+def test_trial_count_and_work():
+    """The plain version counts the line-search trials the kernel runs
+    (none for a done lane, none after a lane's first accepted alpha);
+    `work` counts them as run, the rest as `flops_per_solve` does, and
+    each input and output once."""
+    args = _problem(np.float64, warm=True, seed=3)
+    stats = {}
+    tps.pmpc_solve_reference(*map(torch.from_numpy, args), dt=DT, n_iters=2,
+                             n_alphas=3, stats=stats)
+    trials = stats["trials"].numpy()
+    assert trials.shape == (B,) and np.all(trials <= 2 * 3)
+    assert np.all(trials >= 1)            # the first iteration searches
+    flops, nbytes = tps.work(N, 2, B, int(trials.sum()), 8)
+    assert flops == B * tps.flops_per_solve(N, 2, 0) + \
+        int(trials.sum()) * (75 * N + 80)
+    ins = sum(a.size for a in args) - 2 * 36 * B + 7 * B   # Ad/Sd: 7 read
+    assert nbytes == (ins + (N * 2 + 2) * B) * 8
+
+
 def test_cpu_tensors_take_plain_path_without_launching():
     args = [torch.from_numpy(a) for a in _problem(np.float64, warm=True)]
     before = tps.pmpc_solve.launches
@@ -242,3 +261,53 @@ def test_lane_helpers_match_jax():
     np.testing.assert_array_equal(
         lanes._diag_embed(torch.from_numpy(w)).numpy(),
         np.asarray(jps._diag_embed(jnp.asarray(w))))
+    # The helpers the Riccati and RMPC kernels add: products summed in the
+    # same order, so bitwise equal in float64; the RK4 chain rule and the
+    # gains compose a few of them.
+    b = rng.normal(size=(6, 3, B))
+    np.testing.assert_array_equal(
+        lanes._mm(torch.from_numpy(M), torch.from_numpy(b)).numpy(),
+        np.asarray(jric._mm(jnp.asarray(M), jnp.asarray(b))))
+    np.testing.assert_array_equal(lanes._mT(torch.from_numpy(b)).numpy(),
+                                  np.asarray(jric._mT(jnp.asarray(b))))
+    r = rng.uniform(1e-7, 1e-5, B)
+    for val in (0.25, r):
+        np.testing.assert_array_equal(
+            lanes._add_diag(torch.from_numpy(M), torch.as_tensor(val)
+                            if np.ndim(val) else val).numpy(),
+            np.asarray(jric._add_diag(jnp.asarray(M), jnp.asarray(val)
+                                      if np.ndim(val) else val)))
+    np.testing.assert_array_equal(
+        lanes._scale_add_eye(torch.from_numpy(M), 0.01).numpy(),
+        np.asarray(jric._scale_add_eye(jnp.asarray(M), 0.01)))
+    Quu = rng.normal(size=(2, 2, B)) + 3 * np.eye(2)[..., None]
+    free = rng.integers(0, 2, size=(2, B)).astype(np.float64)
+    cols = [(rng.normal(size=B), rng.normal(size=B)) for _ in range(3)]
+    got = lanes._gains_lanes(torch.from_numpy(Quu), torch.from_numpy(free),
+                             [tuple(map(torch.from_numpy, c)) for c in cols])
+    want = jric._gains_lanes(jnp.asarray(Quu), jnp.asarray(free),
+                             [tuple(map(jnp.asarray, c)) for c in cols])
+    for (g0, g1), (w0, w1) in zip(got, want):
+        np.testing.assert_array_equal(g0.numpy(), np.asarray(w0))
+        np.testing.assert_array_equal(g1.numpy(), np.asarray(w1))
+
+    def model(xp):
+        def f(x, v):
+            return xp.stack([x[1], -0.5 * x[0] + v[0] * x[1]])
+
+        def jac(x, v):
+            z, o = 0.0 * x[0], 1.0 + 0.0 * x[0]
+            A = xp.stack([xp.stack([z, o]), xp.stack([-0.5 + z, v[0]])])
+            Bm = xp.stack([xp.stack([z]), xp.stack([x[1]])])
+            return A, Bm
+        return f, jac
+
+    x = rng.normal(size=(2, B))
+    v = rng.normal(size=(1, B))
+    got = lanes._rk4_jac_lanes(*model(torch), torch.from_numpy(x),
+                               torch.from_numpy(v), 0.002)
+    want = jric._rk4_jac_lanes(*model(jnp), jnp.asarray(x), jnp.asarray(v),
+                               0.002)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-15,
+                                   atol=1e-15)

@@ -125,8 +125,8 @@ def test_from_jax_to_numpy_round_trip():
     diag = from_jax(jax_trees[-1], "cpu", torch.float32)
     assert diag.iters.dtype == torch.int32       # integers keep their type
     with pytest.raises(TypeError, match="no port counterpart"):
-        from_jax(jocp.RMPCAux(ref=np.zeros((3, 4)), Qp=1.0, Qv=1.0, Ru=1.0,
-                              Rdu=1.0), "cpu")
+        from_jax(jocp.LMPCAux(target=np.zeros(8), Q=np.ones(8), R=np.ones(4),
+                              Qt=np.ones(8)), "cpu")
 
 
 def test_stage_and_terminal_cost_match_jax():
