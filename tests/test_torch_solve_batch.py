@@ -135,7 +135,7 @@ def test_clip_tie_derivative_is_one_half():
 
 
 @pytest.mark.parametrize("make", ["make_pmpc_ocp", "make_rmpc_ocp",
-                                  "make_rmpc_ocp_du"])
+                                  "make_rmpc_ocp_du", "make_lmpc_ocp"])
 def test_generic_linearisation_keeps_float32(make):
     """Under torch.func's hessian a python float meeting a 0-d lane value
     promotes it to float64; the OCPs keep their expansions in float32, the
@@ -148,6 +148,14 @@ def test_generic_linearisation_keeps_float32(make):
                          Qp=torch.ones(B, dtype=f), Qv=torch.ones(B, dtype=f),
                          R=torch.ones(B, dtype=f))
         nz, n_con = 6, 1
+    elif make == "make_lmpc_ocp":
+        o = tocp.make_lmpc_ocp(dt=DT)
+        p = torch.full((B, 34), 0.2, dtype=f)
+        a = tocp.LMPCAux(target=torch.full((B, 8), 0.05, dtype=f),
+                         Q=torch.ones((B, 8), dtype=f),
+                         R=torch.ones((B, 4), dtype=f),
+                         Qt=torch.ones((B, 8), dtype=f))
+        nz, n_con = 10, 1
     else:
         o = getattr(tocp, make)(dt=DT)
         p = tdyn.RMPCParams(theta=torch.zeros((B, 14), dtype=f),
