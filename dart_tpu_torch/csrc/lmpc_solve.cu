@@ -23,9 +23,9 @@
 // neighbouring threads touch neighbouring addresses and loads coalesce.
 //
 // What bounds it on this card, and what the design does about it:
-// - It is compute-bound: ~0.27 MFLOP and ~4k exp/tanh/sin/cos per lane at
+// - It is compute-bound: ~0.25 MFLOP and ~5k exp/tanh/sin/cos per lane at
 //   N = 12 and 2 iterations (ops/kernels/lmpc_solve.py::work), against
-//   ~0.6 KB of inputs and outputs. Each thread runs one long chain of
+//   ~0.5 KB of float32 inputs and outputs. Each thread runs one long chain of
 //   dependent FP operations, so latency, not the FP rate, is the limit
 //   until enough lanes are in flight.
 // - The batch is small against the card: B = 4096 lanes are 4096 threads.
@@ -35,9 +35,10 @@
 //   line search's trial X and V come to ~860 values at N = 20, and the RK4
 //   Jacobian's 8x8 temporaries to ~400 more, against 255 registers per
 //   thread. The horizon arrays live in local memory (cached in L1/L2); one
-//   stage's algebra stays in registers as far as ptxas manages. A later PR
-//   could split a lane's 8x8 products over several threads or exploit the
-//   Jacobian's sparsity (the dense products are ~60% of the FLOPs).
+//   stage's algebra stays in registers as far as ptxas manages. A faster
+//   version could split a lane's 8x8 products over several threads or
+//   exploit the Jacobian's sparsity (the dense products are ~60% of the
+//   FLOPs).
 // - The escalation front end (control/mpc.py) reads max(gnorm) on the host
 //   after each round, so every control step syncs.
 //
