@@ -930,20 +930,25 @@ LMPC_STEPS = 1024     # its 1024-step episodes (10.24 s simulated)
 LMPC_KW = dict(dt=LMPC_DT, u_bound=0.4, n_iters=2, n_alphas=3)
 LMPC_TOL_GRAD = 5e-3
 LMPC_SEED = 3
-# Quality gates of the LMPC closed loop. The kernel's semantics (2x3 per
-# round, three alphas 1, 0.6, 0.36, no regularisation, a lane that accepts
-# no trial is done) leave lanes short of 1 cm after 1024 steps, nearly all
-# at friction mu = 0.2, in JAX as in the port: lanes for which rest is a
-# fixed point of the closed loop (the first solve from rest returns V = 0
-# exactly, so u = 0 and the plant never moves), and lanes that move and
-# stall short (tests/test_torch_lmpc_quality.py runs JAX's kernel
-# semantics on lanes of this scenario and leaves the same lanes short).
-# So the lanes at rest must be exactly the first solve's V = 0 lanes, and
-# the success gates stand below the 0.99 target: 0.95 over every lane and
-# 0.98 over the lanes that left rest (0.9575 and 0.9832 measured on an
-# H100).
-LMPC_SUCCESS_ALL = 0.95
-LMPC_SUCCESS_MOVED = 0.98
+# Quality gates of the LMPC closed loop, from JAX's kernel semantics on this
+# scenario (tests/test_torch_lmpc_quality.py; its script run covers every
+# lane an H100 run left short; PERF.md section 6). The kernel's semantics
+# (2x3 per round, alphas 1, 0.6, 0.36, no regularisation, a lane that
+# accepts no trial is done) leave lanes short of 1 cm after 1024 steps,
+# nearly all at friction mu = 0.2. On the card 107 lanes never leave rest:
+# the first solve from rest returns V = 0 exactly, so u = 0, the plant
+# stays at rest and the next step repeats the solve; 67 move and stall
+# short. In JAX 106 of the 107 stay at rest and 64 of the 67 stall, and 28
+# of 28 sampled lanes the card brings within 1 cm end within. So JAX's
+# semantics leave 170 lanes short, 106 of them at rest. The card and JAX
+# end 4 of the card's 174 short lanes differently (2.3%): float32 exp and
+# tanh round differently in each library and tip line-search ties their
+# own way. The gates allow twice that, 8 lanes. The lanes at rest must also
+# be exactly the first solve's V = 0 lanes.
+LMPC_JAX_SHORT, LMPC_JAX_REST, LMPC_FLIPS = 170, 106, 8
+LMPC_SUCCESS_ALL = 1 - (LMPC_JAX_SHORT + LMPC_FLIPS) / B
+LMPC_SUCCESS_MOVED = 1 - (LMPC_JAX_SHORT - LMPC_JAX_REST + LMPC_FLIPS) / (
+    B - LMPC_JAX_REST)
 
 
 def lmpc_problem(seed: int, N_: int, dtype: torch.dtype, dev: torch.device):
@@ -1116,28 +1121,18 @@ def phase_lmpc_main(dev: torch.device, card: str) -> dict:
         + f", {LMPC_STEPS}: {success:.4f}")
     print(f"[lmpc-main] final error: mean {err_mm:.4f} mm, max "
           f"{float(err.max()) * 1e3:.4f} mm")
-    short = torch.nonzero(err >= 0.01).squeeze(-1).cpu().numpy()
     at_rest = (x == 0).all(dim=1)
-    rest = torch.nonzero(at_rest).squeeze(-1).cpu().numpy()
     moved_ok = float(((err < 0.01) & ~at_rest).sum() / (~at_rest).sum())
-    m = pv[:, 0].cpu().numpy()
-    mu = np.round((pv[:, 6] / (pv[:, 0] * 9.81)).cpu().numpy(), 3)
-    groups = sorted({(a, b) for a, b in zip(m[short], mu[short])})
-    print(f"[lmpc-main] lanes short of 1 cm: {len(short)}, of which at rest "
-          f"(never moved): {len(rest)}; the first solve returned V = 0 for "
-          f"{int(fixed.sum())} lanes, the same lanes: "
-          f"{bool(torch.equal(fixed, at_rest))}")
-    print("[lmpc-main] short lanes by (mass, mu): " + ", ".join(
-        f"({a:g}, {b:g}) {int(((m[short] == a) & (mu[short] == b)).sum())}"
-        f"/{int(((m == a) & (mu == b)).sum())}" for a, b in groups))
+    print(f"[lmpc-main] lanes short of 1 cm: {int((err >= 0.01).sum())}, of "
+          f"which at rest (never moved): {int(at_rest.sum())}; the first "
+          f"solve returned V = 0 for {int(fixed.sum())} lanes, the same "
+          f"lanes: {bool(torch.equal(fixed, at_rest))}")
     print(f"[lmpc-main] success@1cm over every lane {success:.4f} (gate >= "
-          f"{LMPC_SUCCESS_ALL}), over the {int((~at_rest).sum())} lanes that "
-          f"left rest {moved_ok:.4f} (gate >= {LMPC_SUCCESS_MOVED}); the "
-          f"target was 0.99 (tests/test_torch_lmpc_quality.py)")
-    print(f"[lmpc-main] lanes at rest: {rest.tolist()}")
-    moving = np.setdiff1d(short, rest)
-    print("[lmpc-main] short lanes that moved (first 40): " + ", ".join(
-        f"{i} ({err[i].item() * 1e3:.2f} mm)" for i in moving[:40]))
+          f"{LMPC_SUCCESS_ALL:.4f}), over the {int((~at_rest).sum())} lanes "
+          f"that left rest {moved_ok:.4f} (gate >= "
+          f"{LMPC_SUCCESS_MOVED:.4f}): JAX's kernel semantics leave "
+          f"{LMPC_JAX_SHORT} lanes short, the gates {LMPC_FLIPS} more "
+          f"(tests/test_torch_lmpc_quality.py)")
     if int(nonfinite) != 0:
         raise AssertionError("non-finite controls on the LMPC path")
     if float(umax) > 0.4 + 1e-6:
@@ -1153,7 +1148,8 @@ def phase_lmpc_main(dev: torch.device, card: str) -> dict:
                              f"{LMPC_SUCCESS_ALL}), over the lanes that "
                              f"left rest {moved_ok} (gate "
                              f"{LMPC_SUCCESS_MOVED})")
-    return {"launches": launches, "step_ms": step_ms}
+    return {"launches": launches, "step_ms": step_ms,
+            "err": err.cpu().numpy(), "at_rest": at_rest.cpu().numpy()}
 
 
 def phase_lmpc_fallback(dev: torch.device, card: str) -> int:

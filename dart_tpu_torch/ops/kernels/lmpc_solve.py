@@ -267,8 +267,15 @@ def lmpc_solve(pvec, Q, R, Qt, target, z0, V0, dt: float,
 lmpc_solve.launches = 0
 
 
-# Per-lane operation counts of the solve's parts, dense 8x8 algebra as
-# written (FLOPs; exp, tanh, sin and cos apart as transcendentals):
+# Per-lane operation counts of the solve (FLOPs; exp, tanh, sin and cos
+# apart as transcendentals), over the function's structural non-zeros.
+# The continuous Jacobian A of `models.dynamics.lmpc_jac` has 16 fixed
+# non-zeros of 64 and B 2 of 16, and the x axis {px, vx, th_y, om_y} never
+# meets the y axis {py, vy, th_x, om_x}: Ad, Bd, P, q, r and the gains stay
+# two blocks. `_rk4_jac_counts` and `_stage_counts` count the products of
+# the RK4 Jacobian chain, the Riccati recursion and the control law over
+# the non-zeros they propagate (a product of m non-zero pairs into one
+# entry is m multiplies and m - 1 adds). The scalar parts:
 #   model f8           ~94 + 16 (6 Stribeck terms ~9 each, the slip
 #                      arguments, forcing, topple torques and the sums;
 #                      6 exp, 6 tanh, 4 sin)
@@ -276,27 +283,152 @@ lmpc_solve.launches = 0
 #                      rows; 6 exp, 6 tanh, 4 cos)
 #   rk4 step           4 f8 + 104 state updates
 #   stage cost         ~45
-#   backward stage     RK4 Jacobian 3 f8 + 4 jac8 + ~4512 (three 8x8x8 and
-#                      three 8x8x2 products, I + s A and the sums), then
-#                      the partitioned Riccati algebra ~4105 (Ad'P Ad
-#                      ~1936, Qux1 and Quu ~640, box QP ~150, gains ~100,
-#                      value update ~1000)
-#   trial stage        rk4 + stage cost + control law and clip ~58
+#   backward stage     3 f8 + 4 jac8 + 48 (the RK4 stage states) + box QP
+#                      ~150 + the control gradients' scalars 20
+#   backward pass      + 32 (the terminal value)
+#   trial stage        rk4 + stage cost, and the control law
 _F8, _JAC8, _T_F8, _T_JAC8 = 94, 136, 16, 16
 _RK4 = 4 * _F8 + 104
 _ROLLOUT = _RK4 + 45
-_BACKWARD = 3 * _F8 + 4 * _JAC8 + 4512 + 4105
-_TRIAL = _ROLLOUT + 58
+_BACKWARD = 3 * _F8 + 4 * _JAC8 + 48 + 150 + 20
 _TERM = 31
 _T_RK4 = 4 * _T_F8
 _T_BACKWARD = 3 * _T_F8 + 4 * _T_JAC8
+# Structural non-zeros (row, column) of lmpc_jac's A and B.
+A_NZ = ((0, 1), (1, 0), (1, 1), (1, 7), (2, 3), (3, 2), (3, 3), (3, 5),
+        (4, 5), (5, 3), (5, 4), (5, 5), (6, 7), (7, 1), (7, 6), (7, 7))
+B_NZ = ((1, 0), (3, 1))
+
+
+def _mask(shape, nz=()):
+    m = torch.zeros(shape, dtype=torch.bool)
+    for ij in nz:
+        m[ij] = True
+    return m
+
+
+def _nnz(m) -> int:
+    return int(m.sum())
+
+
+def _mmc(a, b):
+    """(mask, FLOPs) of the product of two structurally sparse matrices."""
+    pairs = a.long() @ b.long()
+    return pairs > 0, int((2 * pairs - 1).clamp(min=0).sum())
+
+
+def _addc(*ms):
+    """(mask, FLOPs) of a sum of structurally sparse terms."""
+    out, n = ms[0], 0
+    for m in ms[1:]:
+        n += _nnz(out & m)
+        out = out | m
+    return out, n
+
+
+def _rk4_jac_counts():
+    """(Ad mask, Bd mask, FLOPs) of `rk4_jac` on the model and the cost
+    gradients Qx8 = 2 Q (x - tg) + Ad' vx8 and Qu's Bd' vx8 (vx8 dense).
+    dk = A_s (I + s dk_prev) and A_s (s dku_prev) + B_s for the stages 2-4
+    (dk_1 = A, B), summed S += 2 dk, 2 dk, dk; Ad = I + dt/6 Sx and
+    Bd = dt/6 Su. The masks are the same at every stage."""
+    A, B = _mask((8, 8), A_NZ), _mask((8, 2), B_NZ)
+    eye = torch.eye(8) > 0
+    n = 0
+    Sx, Su, dkx, dku = A, B, A, B
+    for stage in range(3):
+        E, c = _addc(dkx, eye)
+        n += _nnz(dkx) + c + _nnz(dku)              # I + s dkx, s dku
+        dkx, c1 = _mmc(A, E)
+        dku, c2 = _mmc(A, dku)
+        dku, c3 = _addc(dku, B)
+        Sx, c4 = _addc(Sx, dkx)
+        Su, c5 = _addc(Su, dku)
+        n += c1 + c2 + c3 + c4 + c5
+        if stage < 2:
+            n += _nnz(dkx) + _nnz(dku)              # the factor 2
+    Ad, c = _addc(Sx, eye)
+    n += _nnz(Sx) + c + _nnz(Su)
+    dense = torch.ones((8, 1), dtype=torch.bool)
+    n += _mmc(Ad.T, dense)[1] + 32 + _mmc(Su.T, dense)[1]
+    return Ad, Su, n
+
+
+def _stage_counts(N: int) -> tuple[int, int]:
+    """(FLOPs of one backward pass's products over its N stages, FLOPs of
+    one trial's N control laws), over the structural non-zeros, in the
+    order `csrc/lmpc_solve.cu` writes the algebra: `rk4_jac` and the cost
+    gradients, the partitioned Riccati update with `gains2`, and the
+    trial's control law."""
+    Ad, Bd, jac = _rk4_jac_counts()
+    eye, eye2 = torch.eye(8) > 0, torch.eye(2) > 0
+    Qux2 = eye2
+    P, q, r = eye, _mask((8, 2)), _mask((2, 2))
+    back = ctrl = 0
+    for _ in range(N):
+        n = jac
+        # Qxx11 = Ad'P Ad + diag(2Q); T2 = Bd'P + q'; Qux1 = T2 Ad;
+        # Quu = T2 Bd + Bd'q + r, symmetrised, plus the jitter.
+        T1, c1 = _mmc(Ad.T, P)
+        Qxx, c2 = _mmc(T1, Ad)
+        T2, c3 = _mmc(Bd.T, P)
+        T2, c4 = _addc(T2, q.T)
+        Qux1, c5 = _mmc(T2, Ad)
+        G1, c6 = _mmc(T2, Bd)
+        G2, c7 = _mmc(Bd.T, q)
+        Gm, c8 = _addc(G1, G2, r)
+        Quu = Gm | Gm.T | eye2
+        n += c1 + c2 + 16 + c3 + c4 + c5 + c6 + c7 + c8
+        n += 2 * _nnz(Gm | Gm.T) + 8
+        # gains2 on the columns b = [Qux1 | Qux2]: h00, h11, det (and h01
+        # where Quu couples the two tilts), b * f, then per gain entry
+        # h11 b0 - h01 b1 (or its other row) and -(.)/det.
+        h01 = bool(Quu[0, 1])
+        b0 = torch.cat([Qux1[0], Qux2[0]])
+        b1 = torch.cat([Qux1[1], Qux2[1]])
+        t0 = b0.long() + (b1 & h01).long()
+        t1 = b1.long() + (b0 & h01).long()
+        k0, k1 = t0 > 0, t1 > 0
+        n += 9 + 4 * h01 + _nnz(b0) + _nnz(b1)
+        n += int((2 * torch.cat([t0, t1]) - 1).clamp(min=0).sum())
+        n += 2 * (_nnz(k0) + _nnz(k1))
+        K1 = torch.stack([k0[:8], k1[:8]])
+        K2 = torch.stack([k0[8:], k1[8:]])
+        # Value update: w2 = Quu d + Qu, vx8 and vu2, then P', q', r'.
+        n += 2 * _nnz(Quu)
+        n += 2 * (_nnz(K1) + _nnz(Qux1) + _nnz(K2) + _nnz(Qux2))
+        K1Q, c1 = _mmc(K1.T, Quu)
+        M, c2 = _mmc(K1.T, Qux1)
+        KQK, c3 = _mmc(K1Q, K1)
+        T1, c4 = _addc(Qxx, KQK, M, M.T)
+        P = T1 | T1.T
+        n += c1 + c2 + c3 + c4 + 2 * _nnz(P)
+        a1, c1 = _mmc(K1Q, K2)
+        a2, c2 = _mmc(K1.T, Qux2)
+        a3, c3 = _mmc(Qux1.T, K2)
+        q, c4 = _addc(a1, a2, a3)
+        n += c1 + c2 + c3 + c4
+        K2Q, c1 = _mmc(K2.T, Quu)
+        M2, c2 = _mmc(K2.T, Qux2)
+        KQK2, c3 = _mmc(K2Q, K2)
+        rn, c4 = _addc(KQK2, M2, M2.T)
+        r = rn | rn.T
+        n += c1 + c2 + c3 + c4 + 2 * _nnz(r) + 4
+        back += n
+        # The trial's control law at this stage: Xt - X and tp - np where
+        # the gains read them, K1 dx + K2 du per tilt, V + al D + both, and
+        # the clip.
+        ctrl += _nnz(K1.any(0)) + _nnz(K2.any(0)) + 12 + sum(
+            max(2 * _nnz(K[a]) - 1, 0) for K in (K1, K2) for a in range(2))
+    return back + 32, ctrl
 
 
 def _counts(N, n_iters, trials):
     """(FLOPs, transcendentals) of one lane that ran `trials` line-search
     trials in all."""
-    flops = (N * _ROLLOUT + _TERM + n_iters * N * _BACKWARD
-             + trials * (N * _TRIAL + _TERM))
+    back, ctrl = _stage_counts(N)
+    flops = (N * _ROLLOUT + _TERM + n_iters * (N * _BACKWARD + back)
+             + trials * (N * _ROLLOUT + ctrl + _TERM))
     trans = N * _T_RK4 + n_iters * N * _T_BACKWARD + trials * N * _T_RK4
     return flops, trans
 
@@ -315,8 +447,8 @@ def work(N: int, n_iters: int, B: int, trials: int,
     plain version): the work this call's data needs, for the roofline
     bound. Bytes: pvec, Q, R, Qt, target, z0, V0 read once; V, cost, gnorm
     written once."""
-    flops, trans = _counts(N, n_iters, 0)
-    flops = B * flops + trials * (N * _TRIAL + _TERM)
+    (flops, trans), (_, ctrl) = _counts(N, n_iters, 0), _stage_counts(N)
+    flops = B * flops + trials * (N * _ROLLOUT + ctrl + _TERM)
     trans = B * trans + trials * N * _T_RK4
     values = 34 + 8 + 4 + 8 + 8 + 10 + N * 2 + N * 2 + 2
     return flops, trans, B * values * itemsize

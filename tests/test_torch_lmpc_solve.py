@@ -17,6 +17,7 @@ import torch
 
 from dart_tpu.control.mpc import LMPC_DEFAULT_WEIGHTS
 from dart_tpu.ops.pallas import lmpc_solve as jls
+from dart_tpu_torch.models import dynamics as tdyn
 from dart_tpu_torch.ops.kernels import lmpc_solve as tls
 from dart_tpu_torch.solver import ilqr as tilqr
 from dart_tpu_torch.solver import ocp as tocp
@@ -172,7 +173,7 @@ def test_nan_lane_reports_nan_and_leaves_others_alone():
     args[0] = args[0].copy()
     args[0][:, 7] = np.nan
     V, cost, gn = _plain(args)
-    assert np.isnan(cost[7]) or np.isnan(gn[7])
+    assert np.isnan(cost[7]) and np.isnan(gn[7])
     rest = np.arange(B) != 7
     for got, want in zip((V, cost, gn), clean):
         np.testing.assert_array_equal(got[..., rest], want[..., rest])
@@ -195,6 +196,29 @@ def test_trial_count_and_work():
     ins = sum(a.size for a in args) * 8
     outs = (N * 2 * B + 2 * B) * 8
     assert nbytes == ins + outs
+
+
+def test_work_counts_the_structural_nonzeros():
+    """`work` counts the products over the model's structural non-zeros:
+    they are exactly those of `lmpc_jac`'s A and B at random states, and
+    those of the RK4 step's (Ad, Bd), two 4x4 blocks, as its mask
+    propagation finds."""
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.normal(size=(64, 8)) * 0.3)
+    u = torch.from_numpy(rng.uniform(-0.4, 0.4, (64, 2)))
+    p = torch.from_numpy(rng.uniform(0.05, 0.5, (64, 34)))
+    A, Bm = tdyn.lmpc_jac(x, u, p)
+    Ad, Bd = tdyn.rk4_jac(tdyn.lmpc_dynamics, tdyn.lmpc_jac, x, u, p, DT)
+    A_nz = tls._mask((8, 8), tls.A_NZ)
+    B_nz = tls._mask((8, 2), tls.B_NZ)
+    Ad_nz, Bd_nz, _ = tls._rk4_jac_counts()
+    for got, want in ((A, A_nz), (Bm, B_nz), (Ad, Ad_nz), (Bd, Bd_nz)):
+        np.testing.assert_array_equal((got != 0).numpy(),
+                                      want.expand_as(got).numpy())
+    assert int(Ad_nz.sum()) == 32 and int(Bd_nz.sum()) == 8
+    # The dense 8x8 algebra as written would count over 3x more.
+    back, _ = tls._stage_counts(N)
+    assert back < N * 3000
 
 
 def test_wrapper_rejects_bad_inputs():
