@@ -526,59 +526,104 @@ def rmpc_problem(seed: int, dtype: torch.dtype, dev: torch.device,
     return [t(thetas), t(refs), t(w, last=False), t(z0), t(V0)]
 
 
+def _rmpc_check(label: str, got, want, tol: dict) -> float:
+    """Hold one kernel result to its plain version; returns max |dV|."""
+    V, cost, viol, gn = got
+    V_p, cost_p, viol_p, gn_p = want
+    for nm, x in (("V", V), ("cost", cost), ("viol", viol), ("gnorm", gn)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"rmpc kernel {nm} not finite ({label})")
+    dV = float((V - V_p).abs().max())
+    dV99 = float(torch.quantile((V[0] - V_p[0]).abs().flatten().double(),
+                                0.99))
+    dc = float(((cost - cost_p).abs() / (1 + cost_p.abs())).max())
+    dvl = float((viol - viol_p).abs().max())
+    dg = float((gn - gn_p).abs().max())
+    print(f"[rmpc] {label}: max|dV| {dV:.3e} (limit {tol['V']:.0e}), "
+          + (f"p99|dV0| {dV99:.3e} (limit {tol['V_p99']:.0e}), "
+             if "V_p99" in tol else "")
+          + f"max|dcost|/(1+|cost|) {dc:.3e} (limit {tol['cost_rel']:.0e}), "
+          f"max|dviol| {dvl:.3e} (limit {tol['viol']:.0e}), max|dgnorm| "
+          f"{dg:.3e} (limit {tol['gnorm']:.0e}); lanes with viol > 0: "
+          f"{int((viol > 0).sum())}, max viol {float(viol.max()):.3e}, "
+          f"max gnorm {float(gn.max()):.3e}")
+    if (dV > tol["V"] or dV99 > tol.get("V_p99", tol["V"])
+            or dc > tol["cost_rel"] or dvl > tol["viol"] or dg > tol["gnorm"]):
+        raise AssertionError(f"rmpc kernel disagrees with plain in {label}")
+    if float(V.abs().max()) > 0.05 + 1e-6:
+        raise AssertionError(f"rmpc kernel V outside +-du_bound ({label})")
+    return dV
+
+
+# A budget with more alphas than the kernel's 4 threads per lane, so the
+# line search runs them in two chunks and must keep the first-accept order.
+RMPC_KW_CHUNKED = {**RMPC_KW, "n_iters": 2, "n_alphas": 6, "al_rounds": 2}
+RMPC_NAN_LANE = 13   # second block's sixth lane: not a block's first
+
+
 def phase_rmpc(dev: torch.device) -> float:
-    """Returns the float32 max |dV|."""
+    """The kernel against its plain version at the main path's shape (N=20,
+    B=4096, 6x4x3), on ragged batches (B=4000 and B=37, the first lanes of
+    the same problem: the plain version is lane by lane, so its B=4096
+    result holds for them), at N=6, and with 6 alphas in two chunks, in
+    float64 and float32; a NaN lane among valid ones; a horizon without an
+    instance. Returns the float32 max |dV| at the main path's shape."""
     from dart_tpu_torch.ops.kernels.rmpc_solve import (rmpc_solve,
                                                        rmpc_solve_reference)
 
-    err32 = None
+    err32, clean32 = None, None
     for dtype, tol in ((torch.float64, RMPC_F64_TOL),
                        (torch.float32, RMPC_F32_TOL)):
-        args = rmpc_problem(3, dtype, dev)
-        V, cost, viol, gn = rmpc_solve(*args, **RMPC_KW)
-        V_p, cost_p, viol_p, gn_p = rmpc_solve_reference(*args, **RMPC_KW)
-        torch.cuda.synchronize()
-        for nm, x in (("V", V), ("cost", cost), ("viol", viol),
-                      ("gnorm", gn)):
-            if not bool(torch.isfinite(x).all()):
-                raise AssertionError(f"rmpc kernel {nm} not finite ({dtype})")
-        dV = float((V - V_p).abs().max())
-        dV99 = float(torch.quantile((V[0] - V_p[0]).abs().flatten()
-                                    .double(), 0.99))
-        dc = float(((cost - cost_p).abs() / (1 + cost_p.abs())).max())
-        dvl = float((viol - viol_p).abs().max())
-        dg = float((gn - gn_p).abs().max())
         name = str(dtype).replace("torch.", "")
-        print(f"[rmpc] {name}: max|dV| {dV:.3e} (limit {tol['V']:.0e}), "
-              + (f"p99|dV0| {dV99:.3e} (limit {tol['V_p99']:.0e}), "
-                 if "V_p99" in tol else "")
-              + f"max|dcost|/(1+|cost|) {dc:.3e} (limit "
-              f"{tol['cost_rel']:.0e}), max|dviol| {dvl:.3e} (limit "
-              f"{tol['viol']:.0e}), max|dgnorm| {dg:.3e} (limit "
-              f"{tol['gnorm']:.0e}); lanes with viol > 0: "
-              f"{int((viol > 0).sum())}, max viol {float(viol.max()):.3e}, "
-              f"max gnorm {float(gn.max()):.3e}")
-        if (dV > tol["V"] or dV99 > tol.get("V_p99", tol["V"])
-                or dc > tol["cost_rel"] or dvl > tol["viol"]
-                or dg > tol["gnorm"]):
-            raise AssertionError(f"rmpc kernel disagrees with plain in {name}")
-        if float(V.abs().max()) > 0.05 + 1e-6:
-            raise AssertionError("rmpc kernel V outside +-du_bound")
-        if dtype == torch.float32:
-            err32 = dV
+        args = rmpc_problem(3, dtype, dev)
+        got = rmpc_solve(*args, **RMPC_KW)
+        want = rmpc_solve_reference(*args, **RMPC_KW)
+        dV = _rmpc_check(f"{name} N=20 B={B}", got, want, tol)
+        again = rmpc_solve(*args, **RMPC_KW)
+        if not all(bool(torch.equal(x, y)) for x, y in zip(got, again)):
+            raise AssertionError(f"rmpc kernel not deterministic ({name})")
+        for Bp in (4000, 37):
+            sub = [a[..., :Bp].contiguous() for a in args]
+            _rmpc_check(f"{name} N=20 B={Bp}", rmpc_solve(*sub, **RMPC_KW),
+                        [w[..., :Bp] for w in want], tol)
+        args6 = rmpc_problem(4, dtype, dev, N_=6)
+        _rmpc_check(f"{name} N=6 B={B}", rmpc_solve(*args6, **RMPC_KW),
+                    rmpc_solve_reference(*args6, **RMPC_KW), tol)
+        want6a = rmpc_solve_reference(*args, **RMPC_KW_CHUNKED)
+        _rmpc_check(f"{name} N=20 B={B} 2x6x2", rmpc_solve(
+            *args, **RMPC_KW_CHUNKED), want6a, tol)
+        if dtype == torch.float64:
+            # Lanes whose plain result moves when alphas 5 and 6 are offered
+            # took one of them: the second chunk decided something there.
+            want4a = rmpc_solve_reference(
+                *args, **{**RMPC_KW_CHUNKED, "n_alphas": 4})
+            late = int((want6a[0] != want4a[0]).flatten(0, 1).any(0).sum())
+            print(f"[rmpc] 2x6x2: {late} lanes accept an alpha past the "
+                  f"first 4 in the plain version")
+            if late == 0:
+                raise AssertionError("no lane reached the second chunk of "
+                                     "alphas: the 2x6x2 case tests nothing")
+        else:
+            err32, clean32 = dV, got
 
-    # One lane with NaN theta must report NaN, the others stay finite.
+    # One lane with NaN theta, among valid lanes, must report NaN; every
+    # other lane must come out as it did without it.
     args = rmpc_problem(3, torch.float32, dev)
-    args[0][:, 5] = float("nan")
-    V, cost, viol, gn = rmpc_solve(*args, **RMPC_KW)
+    args[0][:, RMPC_NAN_LANE] = float("nan")
+    got = rmpc_solve(*args, **RMPC_KW)
     rest = torch.ones(B, dtype=torch.bool, device=dev)
-    rest[5] = False
-    nan5 = bool(torch.isnan(viol[5])) or bool(torch.isnan(gn[5]))
-    fin = all(bool(torch.isfinite(x[..., rest]).all())
-              for x in (V, cost, viol, gn))
-    print(f"[rmpc] NaN-theta lane 5: viol {float(viol[5])}, gnorm "
-          f"{float(gn[5])}; other lanes finite: {fin}")
-    if not (nan5 and fin):
+    rest[RMPC_NAN_LANE] = False
+    bad = (bool(torch.isnan(got[2][RMPC_NAN_LANE]))
+           or bool(torch.isnan(got[3][RMPC_NAN_LANE])))
+    same = all(bool(torch.equal(x[..., rest], y[..., rest]))
+               for x, y in zip(got, clean32))
+    print(f"[rmpc] NaN-theta lane {RMPC_NAN_LANE}: viol "
+          f"{float(got[2][RMPC_NAN_LANE])}, gnorm "
+          f"{float(got[3][RMPC_NAN_LANE])}; lanes {RMPC_NAN_LANE - 1} and "
+          f"{RMPC_NAN_LANE + 1} cost {float(got[1][RMPC_NAN_LANE - 1]):.6g}, "
+          f"{float(got[1][RMPC_NAN_LANE + 1]):.6g}; every other lane as "
+          f"without it: {same}")
+    if not (bad and same):
         raise AssertionError("NaN lane not reported, or it leaked")
 
     # A horizon without a kernel instance is refused before any launch.
@@ -879,8 +924,28 @@ def phase_kernel_times(dev: torch.device, card: str) -> dict:
     print(f"[times] rmpc_solve work: {flops} FLOPs, {trans} tanh/sin/cos "
           f"({trials} line-search trials, {trials / B:.2f} per lane), "
           f"{nbytes} bytes; bound {bound_ms:.6f} ms by {bound_by}")
+    for dtype in (torch.float32, torch.float64):
+        geo = krs.launch_geometry(RMPC_N, dtype)
+        print(f"[times] rmpc_solve launch geometry N={RMPC_N} "
+              f"{str(dtype).replace('torch.', '')}: {geo['threads']} threads "
+              f"and {geo['lanes']} lanes per block, {geo['shared_bytes']} "
+              f"dynamic shared bytes per block, {geo['blocks_per_sm']} blocks "
+              f"per SM resident, {-(-B // geo['lanes'])} blocks at B={B}")
     out["rmpc_solve"] = {"ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
+    # Threads per lane: 4 against 8, in turns, on the same inputs.
+    base = krs.rmpc_solve(*args, **RMPC_KW)
+    for G in (8, 4, 8, 4):
+        krs.set_group(G)
+        got = krs.rmpc_solve(*args, **RMPC_KW)
+        same = all(bool(torch.equal(x, y)) for x, y in zip(got, base))
+        g_ms = median_ms(lambda: krs.rmpc_solve(*args, **RMPC_KW), 20)
+        geo = krs.launch_geometry(RMPC_N, torch.float32)
+        print(f"[times] rmpc_solve G={G}: {g_ms:.4f} ms per call, result "
+              f"equal to G=4's: {same}, {geo} [{card}]")
+        if not same:
+            raise AssertionError(f"rmpc_solve G={G} differs from G=4")
+    krs.set_group(4)
 
     args, lo, hi, reg = riccati_problem(620, 20, 6, torch.float32, dev)
     kric.riccati_backward(*args, lo, hi, reg)

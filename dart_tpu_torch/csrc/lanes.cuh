@@ -263,4 +263,30 @@ __device__ __forceinline__ void rk4_jac(F f, J jac, const T (&x)[NX],
     for (int j = 0; j < NU; ++j) Bd[i][j] = c.dt6 * Su[i][j];
 }
 
+// ---------------------------------------------------------------------------
+// Group-cooperative helpers: a lane held by a group of G threads (G a power
+// of two, 4 <= G <= 32), thread r < 4 of the group owning row or column r of
+// the lane's 4x4 algebra. `mask` names the group's threads in the warp and
+// `width` is G, so a source index is relative to the group.
+// ---------------------------------------------------------------------------
+
+// a[i] for a runtime i in 0..3, by selects (a register array indexed at run
+// time would go to local memory).
+template <typename T>
+__device__ __forceinline__ T pick4(const T (&a)[4], int i) {
+  return i == 0 ? a[0] : (i == 1 ? a[1] : (i == 2 ? a[2] : a[3]));
+}
+
+// full[i][j] = own[j] of the group's thread i, for i = 0..3, in every
+// thread of the group.
+template <typename T, int M>
+__device__ __forceinline__ void group_gather4(unsigned mask, int width,
+                                              const T (&own)[M],
+                                              T (&full)[4][M]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < M; ++j) full[i][j] = __shfl_sync(mask, own[j], i, width);
+}
+
 }  // namespace dart

@@ -1,5 +1,5 @@
 // Whole slew-exact RMPC solve, augmented-Lagrangian outer loop included,
-// one thread per scenario lane, for Hopper (sm_90a).
+// one scenario lane per group of G threads, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dart_tpu/ops/pallas/rmpc_solve.py::_rmpc_kernel
 // (rmpc_solve_pallas) and computes what it computes, step for step: the
@@ -10,46 +10,66 @@
 // q (4x2), r (2x2), an exact 2x2 box QP over the slew v per stage, PHR
 // velocity caps with per-lane multipliers, and an alpha = 0.6^i line search
 // with per-lane accept and done masks. Its semantics are the TPU kernel's,
-// not ilqr.solve_batch's: the done mask and the cost restart at each AL
-// round, a lane that accepts no alpha is done, gnorm is the max |d| of the
-// last backward pass (taken before its line search), the multipliers
-// update on the round's final trajectory, and gravity is the constant
-// -9.81. The plain PyTorch version is
-// dart_tpu_torch/ops/kernels/rmpc_solve.py::_solve_lanes.
+// not ilqr.solve_batch's: V0 is clipped to +-du_bound, the done mask and
+// the cost restart at each AL round, the lane takes the first alpha in the
+// order 0.6^i whose cost is below cost - 1e-12, a lane that accepts no
+// alpha is done, gnorm is the max |d| of the last backward pass (taken
+// before its line search), the multipliers update on the round's final
+// trajectory, and gravity is the constant -9.81. The plain PyTorch version
+// is dart_tpu_torch/ops/kernels/rmpc_solve.py::_solve_lanes.
 //
-// Layout: every array is batch-last, element (i, lane) at i * B + lane, so
-// neighbouring threads touch neighbouring addresses and loads coalesce.
+// Layout: every global array is batch-last, element (i, lane) at
+// i * B + lane, so neighbouring lanes touch neighbouring addresses.
 //
 // What bounds it on this card, and what the design does about it:
-// - It is compute-bound: ~1.2 MFLOP and ~10k tanh/sin/cos per lane at the
+// - It is compute-bound: ~0.9 MFLOP and ~10k tanh/sin/cos per lane at the
 //   production budget (N = 20, 6 iterations x 4 alphas x 3 AL rounds)
-//   against ~0.5 KB of inputs and outputs. Each thread runs one long chain
-//   of dependent FP operations, so latency, not the FP rate, is the limit
-//   until enough lanes are in flight.
-// - The batch is small against the card: B = 4096 lanes are 4096 threads.
-//   Blocks of 32 threads give 128 blocks, one warp on all but four of the
-//   132 SMs (PMPC's 128-thread blocks left 100 SMs idle at this B).
-// - Per-lane state is far beyond the register file: X, U, V, lam, D, K1,
-//   K2, the line search's trial X/U/V and the reference come to ~780
-//   values at N = 20, against 255 registers per thread. The horizon arrays
-//   live in local memory (cached in L1/L2); only one stage's 4x4 algebra
-//   stays in registers. A later PR could keep the horizon in shared memory
-//   with several threads per lane, or fuse the rollout into the backward
-//   pass to shrink the trial arrays.
+//   against ~0.5 KB of inputs and outputs, and most of it is a chain of
+//   dependent operations through the stages of each backward pass. So the
+//   limit is latency: how many independent chains each SM's four
+//   schedulers can interleave, and how short each chain is.
+// - A lane per group of G = 4 threads (kGroup). B = 4096 lanes are 16384
+//   threads, 512 warps, ~3.9 per SM, one per scheduler (one thread per lane
+//   gave one warp per SM). In the backward pass thread r owns row r of P,
+//   q, W, Qxx11, Qxx12 and the value update, and column r of Ad, Qvz1 and
+//   K1 (the RK4 Jacobian chain dk_s = A_s (I + h dk_{s-1}) runs column by
+//   column with no exchange); the group exchanges Ad, W, q, K1, Qvz1, the
+//   new P and vx with __shfl_sync (68 shuffles per stage). Each thread
+//   computes the cheap replicated parts itself (the 2x2 box QP, the gains'
+//   determinant, Bd, r, the scalars), so every thread of a group holds the
+//   same replicated values bit for bit and branches alike. The chain skips
+//   the continuous A's two unit rows and B's zeros.
+// - The line search runs the alphas in parallel: thread a of the group
+//   runs the trial with alpha 0.6^a (in chunks of G, in order, when
+//   n_alphas > G), each into its own slice of shared memory, and the lane
+//   takes the smallest index whose cost passes the test (a ballot over the
+//   group). Every trial starts from the same X, U, V, D, K, so this is the
+//   TPU kernel's `~accepted & (c_new < cost - 1e-12)` exactly. The group
+//   then copies the winner's slice over X, U, V. Done lanes skip the
+//   search.
+// - The horizon lives in dynamic shared memory, per lane: ref, lam, D, K1,
+//   K2, the current X[1..N], U[1..N], V and G trial trajectories,
+//   30N + 4 + 8GN values (1244 at N = 20: 4976 bytes in float, 9952 in
+//   double). A block is one warp of 32 // G = 8 lanes (39808 bytes in float
+//   at N = 20, 79616 in double, above 48 KB, so launch() raises the
+//   instance's dynamic shared limit once). Element idx of the warp's lane
+//   slot lw sits at idx * 8 + lw: the threads of a warp reading a row,
+//   a broadcast value or their own trial slices hit distinct banks.
 // - The escalation front end (control/mpc.py) reads max(viol) and
 //   max(gnorm) on the host after each round, so every control step syncs.
 //
-// Two shortcuts that change no result: a lane that accepts an alpha skips
-// the remaining trials (the TPU kernel computes and discards them), and a
-// done lane skips the line search (its trials are never accepted).
+// One launch per call, no atomics, no fallback; a group whose lane is past
+// the batch's end returns at once (the others use group masks only).
 //
 // Numerics: precise tanh/sin/cos and IEEE division (no --use_fast_math).
 // Constants the TPU kernel folds in python double (dt/2, dt/6, 0.6^i) are
-// folded on the host in double and rounded once. nvcc's default FMA
-// contraction is left on, so float32 results differ from the plain version
-// by a few ulps per operation; chip_smoke.py states the tolerance. Every
-// max and clip propagates NaN, so a lane with NaN inputs reports a NaN viol
-// or gnorm.
+// folded on the host in double and rounded once. Each element keeps the
+// plain version's order of operations (sums over t = 0..3 in order, the
+// structural zeros of A and B skipped, which adds or multiplies nothing);
+// nvcc's default FMA contraction is left on, so float32 results differ
+// from the plain version by a few ulps per operation; chip_smoke.py states
+// the tolerance. Every max and clip propagates NaN, so a lane with NaN
+// inputs reports a NaN viol or gnorm.
 
 #include <cuda_runtime.h>
 
@@ -61,7 +81,10 @@ namespace {
 
 using namespace dart;
 
-constexpr int kThreads = 32;
+constexpr int kWarp = 32;
+constexpr int kThreads = 32;   // threads per block: one warp
+constexpr int kGroup = 4;      // threads per lane
+int g_group = kGroup;          // the group size calls launch (4 or 8)
 
 template <typename T>
 struct Consts {
@@ -72,7 +95,25 @@ struct Consts {
   T alpha[kMaxAlphas];   // 0.6^i
 };
 
-template <typename T, int N>
+// A lane's shared-memory arrays, as element offsets. A trajectory is
+// X[1..N] (4N), U[1..N] (2N), V[0..N-1] (2N); X[0], U[0] stay in registers.
+// Element e of the trial trajectory of thread a sits at kTrial + e * G + a.
+template <int N, int G>
+struct Layout {
+  static constexpr int kRef = 0;                    // ref[k][i], (N+1) x 4
+  static constexpr int kLam = kRef + 4 * (N + 1);   // lam[k][i], N x 4
+  static constexpr int kD = kLam + 4 * N;           // D[k][a], N x 2
+  static constexpr int kK1 = kD + 2 * N;            // K1[k][a][j], N x 2 x 4
+  static constexpr int kK2 = kK1 + 8 * N;           // K2[k][a][b], N x 2 x 2
+  static constexpr int kTraj = 8 * N;
+  static constexpr int kCur = kK2 + 4 * N;
+  static constexpr int kTrial = kCur + kTraj;
+  static constexpr int kPerLane = kTrial + G * kTraj;
+  static constexpr int kU = 4 * N;                  // U[1] within a trajectory
+  static constexpr int kV = 6 * N;                  // V[0] within a trajectory
+};
+
+template <typename T, int N, int G>
 __global__ void __launch_bounds__(kThreads)
 rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
                   const T* __restrict__ w_in, const T* __restrict__ z0_in,
@@ -80,8 +121,23 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
                   T* __restrict__ cost_out, T* __restrict__ viol_out,
                   T* __restrict__ gnorm_out, int B, int n_iters, int n_alphas,
                   int al_rounds, const Consts<T> c) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
+  using L = Layout<N, G>;
+  constexpr int LW = kWarp / G;   // lanes per warp
+  const int tid = threadIdx.x;
+  const int t = tid % G;          // thread within the lane's group
+  const int r = t & 3;            // the row / column it owns
+  const int lw = (tid % kWarp) / G;
+  const int lane = (blockIdx.x * blockDim.x + tid) / G;
+  if (lane >= B) return;          // the whole group leaves together
+  const int gfirst = tid % kWarp - t;
+  const unsigned gmask = ((G == 32) ? 0xffffffffu : ((1u << G) - 1u)) << gfirst;
+  const bool owner = t < 4;       // one writer per owned element
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const base = reinterpret_cast<T*>(smem_raw)
+                  + (tid / kWarp) * (L::kPerLane * LW) + lw;
+  auto S = [&](int idx) -> T& { return base[idx * LW]; };
+
   const size_t sB = static_cast<size_t>(B);
   auto at = [&](const T* p, int i) { return p[static_cast<size_t>(i) * sB + lane]; };
 
@@ -96,69 +152,134 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
   up0[0] = at(z0_in, 4);
   up0[1] = at(z0_in, 5);
 
-  T ref[N + 1][4], X[N + 1][4], U[N + 1][2], V[N][2], lam[N][4];
-  T D[N][2], K1[N][2][4], K2[N][2][2], Xt[N + 1][4], Ut[N + 1][2], Vt[N][2];
 #pragma unroll 1
-  for (int k = 0; k <= N; ++k) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ref[k][i] = at(ref_in, 4 * k + i);
-  }
+  for (int e = t; e < 4 * (N + 1); e += G) S(L::kRef + e) = at(ref_in, e);
 #pragma unroll 1
-  for (int k = 0; k < N; ++k) {
-    V[k][0] = clip(at(V0, 2 * k), -c.du_b, c.du_b);
-    V[k][1] = clip(at(V0, 2 * k + 1), -c.du_b, c.du_b);
-  }
+  for (int e = t; e < 2 * N; e += G)
+    S(L::kCur + L::kV + e) = clip(at(V0, e), -c.du_b, c.du_b);
+#pragma unroll 1
+  for (int e = t; e < 4 * N; e += G) S(L::kLam + e) = T(0);
+  __syncwarp(gmask);
 
-  // xdot of the model (f4) and its continuous-time Jacobians (jac4).
-  auto f4 = [&](const T (&x)[4], const T (&u)[2], T (&xd)[4]) {
-    const T tx = dtanh(x[1] / c.v_eps), ty = dtanh(x[3] / c.v_eps);
-    const T ax = c.g * dsin(u[0]) + th[0] * x[0] + th[1] * x[1] + th[2] * x[2]
-                 + th[3] * x[3] + th[4] * tx + th[5] * ty + th[6];
-    const T ay = c.g * dsin(u[1]) + th[7] * x[0] + th[8] * x[1] + th[9] * x[2]
-                 + th[10] * x[3] + th[11] * tx + th[12] * ty + th[13];
-    xd[0] = x[1];
-    xd[1] = ax;
-    xd[2] = x[3];
-    xd[3] = ay;
+  auto Xk = [&](int k, T (&x)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[i] = (k == 0) ? x0[i] : S(L::kCur + 4 * (k - 1) + i);
   };
-  auto jac4 = [&](const T (&x)[4], const T (&u)[2], T (&A)[4][4], T (&Bj)[4][2]) {
-    const T tx = dtanh(x[1] / c.v_eps), ty = dtanh(x[3] / c.v_eps);
+  auto Uk = [&](int k, T (&u)[2]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      u[j] = (k == 0) ? up0[j] : S(L::kCur + L::kU + 2 * (k - 1) + j);
+  };
+  auto Vk = [&](int k, int j) -> T& { return S(L::kCur + L::kV + 2 * k + j); };
+
+  // xdot of the model (f4) with gs = g sin(u), returning the tanh features;
+  // rows 1 and 3 of the continuous A from them (rows 0 and 2 are unit).
+  auto f4 = [&](const T (&x)[4], T gs0, T gs1, T (&xd)[4], T& tx, T& ty) {
+    tx = dtanh(x[1] / c.v_eps);
+    ty = dtanh(x[3] / c.v_eps);
+    xd[0] = x[1];
+    xd[1] = gs0 + th[0] * x[0] + th[1] * x[1] + th[2] * x[2] + th[3] * x[3]
+            + th[4] * tx + th[5] * ty + th[6];
+    xd[2] = x[3];
+    xd[3] = gs1 + th[7] * x[0] + th[8] * x[1] + th[9] * x[2] + th[10] * x[3]
+            + th[11] * tx + th[12] * ty + th[13];
+  };
+  auto arows = [&](T tx, T ty, T (&a1)[4], T (&a3)[4]) {
     const T dtx = (T(1) - tx * tx) / c.v_eps;
     const T dty = (T(1) - ty * ty) / c.v_eps;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) A[i][j] = T(0);
-    A[0][1] = T(1);
-    A[1][0] = th[0];
-    A[1][1] = th[1] + th[4] * dtx;
-    A[1][2] = th[2];
-    A[1][3] = th[3] + th[5] * dty;
-    A[2][3] = T(1);
-    A[3][0] = th[7];
-    A[3][1] = th[8] + th[11] * dtx;
-    A[3][2] = th[9];
-    A[3][3] = th[10] + th[12] * dty;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Bj[i][0] = Bj[i][1] = T(0);
-    Bj[1][0] = c.g * dcos(u[0]);
-    Bj[3][1] = c.g * dcos(u[1]);
+    a1[0] = th[0];
+    a1[1] = th[1] + th[4] * dtx;
+    a1[2] = th[2];
+    a1[3] = th[3] + th[5] * dty;
+    a3[0] = th[7];
+    a3[1] = th[8] + th[11] * dtx;
+    a3[2] = th[9];
+    a3[3] = th[10] + th[12] * dty;
   };
   auto rk4 = [&](const T (&x)[4], const T (&u)[2], T (&xn)[4]) {
-    T k1[4], k2[4], k3[4], k4[4], xt[4];
-    f4(x, u, k1);
+    const T gs0 = c.g * dsin(u[0]), gs1 = c.g * dsin(u[1]);
+    T k1[4], k2[4], k3[4], k4[4], xt[4], tx, ty;
+    f4(x, gs0, gs1, k1, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) xt[i] = x[i] + c.rk.half_dt * k1[i];
-    f4(xt, u, k2);
+    f4(xt, gs0, gs1, k2, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) xt[i] = x[i] + c.rk.half_dt * k2[i];
-    f4(xt, u, k3);
+    f4(xt, gs0, gs1, k3, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i) xt[i] = x[i] + c.rk.dt * k3[i];
-    f4(xt, u, k4);
+    f4(xt, gs0, gs1, k4, tx, ty);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
       xn[i] = x[i] + c.rk.dt6 * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]);
+  };
+  // Column r of Ad and both columns of Bd of one RK4 step at (x, u), by the
+  // chain rule of lanes.cuh's rk4_jac: dk_1 = A_1, dk_s = A_s (I + h dk_{s-1})
+  // and dku_s = A_s (h dku_{s-1}) + B_s, S = dk_1 + 2 dk_2 + 2 dk_3 + dk_4,
+  // Ad = I + dt/6 Sx, Bd = dt/6 Su. A_s's unit rows 0 and 2 copy rows 1 and
+  // 3 of their operand; B_s = g cos(u) at (1, 0) and (3, 1).
+  auto rk4_jac_col = [&](const T (&x)[4], const T (&u)[2], T (&adc)[4],
+                         T (&Bd)[4][2]) {
+    const T gs0 = c.g * dsin(u[0]), gs1 = c.g * dsin(u[1]);
+    const T gc0 = c.g * dcos(u[0]), gc1 = c.g * dcos(u[1]);
+    T a1[4][4], a3[4][4], kd[4], xs[4], tx, ty;
+    f4(x, gs0, gs1, kd, tx, ty);
+    arows(tx, ty, a1[0], a3[0]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xs[i] = x[i] + c.rk.half_dt * kd[i];
+    f4(xs, gs0, gs1, kd, tx, ty);
+    arows(tx, ty, a1[1], a3[1]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xs[i] = x[i] + c.rk.half_dt * kd[i];
+    f4(xs, gs0, gs1, kd, tx, ty);
+    arows(tx, ty, a1[2], a3[2]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) xs[i] = x[i] + c.rk.dt * kd[i];
+    arows(dtanh(xs[1] / c.v_eps), dtanh(xs[3] / c.v_eps), a1[3], a3[3]);
+
+    T dk[4] = {(r == 1) ? T(1) : T(0), pick4(a1[0], r), (r == 3) ? T(1) : T(0),
+               pick4(a3[0], r)};
+    T Sx[4] = {dk[0], dk[1], dk[2], dk[3]};
+    T du[2][4] = {{T(0), gc0, T(0), T(0)}, {T(0), T(0), T(0), gc1}};
+    T Su[2][4] = {{T(0), gc0, T(0), T(0)}, {T(0), T(0), T(0), gc1}};
+#pragma unroll
+    for (int s = 1; s < 4; ++s) {
+      const T h = (s == 3) ? c.rk.dt : c.rk.half_dt;
+      T E[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) E[i] = (i == r) ? h * dk[i] + T(1) : h * dk[i];
+      dk[0] = E[1];
+      dk[1] = a1[s][0] * E[0] + a1[s][1] * E[1] + a1[s][2] * E[2] + a1[s][3] * E[3];
+      dk[2] = E[3];
+      dk[3] = a3[s][0] * E[0] + a3[s][1] * E[1] + a3[s][2] * E[2] + a3[s][3] * E[3];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        T sb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sb[i] = h * du[j][i];
+        const T r1 = a1[s][0] * sb[0] + a1[s][1] * sb[1] + a1[s][2] * sb[2]
+                     + a1[s][3] * sb[3];
+        const T r3 = a3[s][0] * sb[0] + a3[s][1] * sb[1] + a3[s][2] * sb[2]
+                     + a3[s][3] * sb[3];
+        du[j][0] = sb[1];
+        du[j][1] = (j == 0) ? r1 + gc0 : r1;
+        du[j][2] = sb[3];
+        du[j][3] = (j == 1) ? r3 + gc1 : r3;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        Sx[i] = (s < 3) ? Sx[i] + T(2) * dk[i] : Sx[i] + dk[i];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          Su[j][i] = (s < 3) ? Su[j][i] + T(2) * du[j][i] : Su[j][i] + du[j][i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      adc[i] = (i == r) ? c.rk.dt6 * Sx[i] + T(1) : c.rk.dt6 * Sx[i];
+      Bd[i][0] = c.rk.dt6 * Su[0][i];
+      Bd[i][1] = c.rk.dt6 * Su[1][i];
+    }
   };
   // Velocity caps c(x) <= 0.
   auto con4 = [&](const T (&x)[4], T (&C)[4]) {
@@ -171,7 +292,7 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
     T s = T(0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const T e = x[i] - ref[k][i];
+      const T e = x[i] - S(L::kRef + 4 * k + i);
       s = (i == 0) ? w4[0] * e * e : s + w4[i] * e * e;
     }
     return s;
@@ -187,68 +308,78 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
     T pen = T(0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const T t = nan_max(T(0), lam[k][i] + mu * C[i]);
-      const T term = t * t - lam[k][i] * lam[k][i];
+      const T lam = S(L::kLam + 4 * k + i);
+      const T tt = nan_max(T(0), lam + mu * C[i]);
+      const T term = tt * tt - lam * lam;
       pen = (i == 0) ? term : pen + term;
     }
     return cs + pen / (T(2) * mu);
   };
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    X[0][i] = x0[i];
-    Xt[0][i] = x0[i];
-  }
-  U[0][0] = Ut[0][0] = up0[0];
-  U[0][1] = Ut[0][1] = up0[1];
-#pragma unroll 1
-  for (int k = 0; k < N; ++k)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) lam[k][i] = T(0);
   T mu = c.mu_init, viol = T(0), gnorm = T(0);
 
 #pragma unroll 1
   for (int round = 0; round < al_rounds; ++round) {
-    // Rollout and AL cost of the round's starting V.
+    // Rollout and AL cost of the round's starting V (every thread of the
+    // group computes it; thread 0 stores X, U).
     T cost = T(0);
+    {
+      T x[4] = {x0[0], x0[1], x0[2], x0[3]}, up[2] = {up0[0], up0[1]};
 #pragma unroll 1
-    for (int k = 0; k < N; ++k) {
-      cost = cost + stage_cost_al(X[k], U[k], V[k], k, mu);
-      T u[2] = {clip(U[k][0] + V[k][0], -c.u_b, c.u_b),
-                clip(U[k][1] + V[k][1], -c.u_b, c.u_b)};
-      rk4(X[k], u, X[k + 1]);
-      U[k + 1][0] = u[0];
-      U[k + 1][1] = u[1];
+      for (int k = 0; k < N; ++k) {
+        const T v[2] = {Vk(k, 0), Vk(k, 1)};
+        cost = cost + stage_cost_al(x, up, v, k, mu);
+        const T u[2] = {clip(up[0] + v[0], -c.u_b, c.u_b),
+                        clip(up[1] + v[1], -c.u_b, c.u_b)};
+        T xn[4];
+        rk4(x, u, xn);
+        if (t == 0) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) S(L::kCur + 4 * k + i) = xn[i];
+          S(L::kCur + L::kU + 2 * k) = u[0];
+          S(L::kCur + L::kU + 2 * k + 1) = u[1];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = xn[i];
+        up[0] = u[0];
+        up[1] = u[1];
+      }
+      cost = cost + track(x, N);
     }
-    cost = cost + track(X[N], N);
+    __syncwarp(gmask);
     bool done = false;
 
 #pragma unroll 1
     for (int it = 0; it < n_iters; ++it) {
       // ---- backward: partitioned Riccati over z = [x(4), u_prev(2)] ----
-      T vx4[4], vu2[2] = {T(0), T(0)}, P[4][4], q[4][2], r[2][2];
+      // Replicated: vx4, vu2, P (symmetric), rr; owned: row r of q.
+      T vx4[4], vu2[2] = {T(0), T(0)}, P[4][4], qr[2] = {T(0), T(0)}, rr[2][2];
+      {
+        T xN[4];
+        Xk(N, xN);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        vx4[i] = T(2) * w4[i] * (X[N][i] - ref[N][i]);
+        for (int i = 0; i < 4; ++i) {
+          vx4[i] = T(2) * w4[i] * (xN[i] - S(L::kRef + 4 * N + i));
 #pragma unroll
-        for (int j = 0; j < 4; ++j) P[i][j] = (i == j) ? T(2) * w4[i] : T(0);
-        q[i][0] = q[i][1] = T(0);
+          for (int j = 0; j < 4; ++j) P[i][j] = (i == j) ? T(2) * w4[i] : T(0);
+        }
       }
-      r[0][0] = r[0][1] = r[1][0] = r[1][1] = T(0);
+      rr[0][0] = rr[0][1] = rr[1][0] = rr[1][1] = T(0);
+      const T w4r = pick4(w4, r);
       T gn = T(0);
 #pragma unroll 1
       for (int k = N - 1; k >= 0; --k) {
-        T x[4], u[2], m[2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) x[i] = X[k][i];
-        const T v0 = V[k][0], v1 = V[k][1];
-        const T s0 = U[k][0] + v0, s1 = U[k][1] + v1;
+        T x[4], up[2], m[2], u[2];
+        Xk(k, x);
+        Uk(k, up);
+        const T v0 = Vk(k, 0), v1 = Vk(k, 1);
+        const T s0 = up[0] + v0, s1 = up[1] + v1;
         m[0] = (dabs(s0) < c.u_b) ? T(1) : T(0);
         m[1] = (dabs(s1) < c.u_b) ? T(1) : T(0);
         u[0] = clip(s0, -c.u_b, c.u_b);
         u[1] = clip(s1, -c.u_b, c.u_b);
-        T Ad[4][4], Bd[4][2], Bm[4][2];
-        rk4_jac<T, 4, 2>(f4, jac4, x, u, c.rk, Ad, Bd);
+        T adc[4], Bd[4][2], Bm[4][2];
+        rk4_jac_col(x, u, adc, Bd);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           Bm[i][0] = Bd[i][0] * m[0];
@@ -258,21 +389,21 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
         // Stage cost quadratics (make_rmpc_ocp_du.cost_quad) and PHR rows.
         const T gu[2] = {T(2) * Ru * u[0] * m[0], T(2) * Ru * u[1] * m[1]};
         const T hu[2] = {T(2) * Ru * m[0], T(2) * Ru * m[1]};
-        T e4[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) e4[i] = T(2) * w4[i] * (x[i] - ref[k][i]);
+        const T e4r = T(2) * w4r * (pick4(x, r) - S(L::kRef + 4 * k + r));
         const T lv[2] = {T(2) * Rdu * v0 + gu[0], T(2) * Rdu * v1 + gu[1]};
-        T C[4], t[4], act[4];
+        T C[4], tc[4], act[4];
         con4(x, C);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          t[i] = nan_max(T(0), lam[k][i] + mu * C[i]);
-          act[i] = (t[i] > T(0)) ? T(1) : T(0);
+          tc[i] = nan_max(T(0), S(L::kLam + 4 * k + i) + mu * C[i]);
+          act[i] = (tc[i] > T(0)) ? T(1) : T(0);
         }
-        const T lx4[4] = {e4[0], e4[1] + t[0] - t[1], e4[2], e4[3] + t[2] - t[3]};
-        const T dal[4] = {T(0), mu * (act[0] + act[1]), T(0), mu * (act[2] + act[3])};
+        const T lxr = (r == 1) ? e4r + tc[0] - tc[1]
+                      : (r == 3) ? e4r + tc[2] - tc[3] : e4r;
+        const T dalr = (r == 1) ? mu * (act[0] + act[1])
+                       : (r == 3) ? mu * (act[2] + act[3]) : T(0);
 
-        T core[2], Qx4[4], Qu2[2], Qvl[2];
+        T core[2], Qu2[2], Qvl[2];
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           T acc = Bm[0][j] * vx4[0];
@@ -282,24 +413,27 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
           Qu2[j] = gu[j] + core[j];
           Qvl[j] = lv[j] + core[j];
         }
+        T Qxr;
+        {
+          T acc = adc[0] * vx4[0];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          T acc = Ad[0][i] * vx4[0];
-#pragma unroll
-          for (int tt = 1; tt < 4; ++tt) acc = acc + Ad[tt][i] * vx4[tt];
-          Qx4[i] = lx4[i] + acc;
+          for (int tt = 1; tt < 4; ++tt) acc = acc + adc[tt] * vx4[tt];
+          Qxr = lxr + acc;
         }
 
-        // W = P Bm + q*m; S2 = Bm^T q + r*m (rows); T2 = (Ad^T P) Ad.
-        T W[4][2], S2[2][2], AdT[4][4], T1[4][4], T2[4][4];
-        mm(P, Bm, W);
+        // W = P Bm + q*m (row r), gathered; S2 = Bm^T q + r*m.
+        T Pr[4], Wr[2], W[4][2], q[4][2], S2[2][2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          W[i][0] = W[i][0] + q[i][0] * m[0];
-          W[i][1] = W[i][1] + q[i][1] * m[1];
+        for (int j = 0; j < 4; ++j) Pr[j] = pick4(P[j], r);   // P symmetric
 #pragma unroll
-          for (int j = 0; j < 4; ++j) AdT[i][j] = Ad[j][i];
+        for (int b = 0; b < 2; ++b) {
+          T acc = Pr[0] * Bm[0][b];
+#pragma unroll
+          for (int tt = 1; tt < 4; ++tt) acc = acc + Pr[tt] * Bm[tt][b];
+          Wr[b] = acc + qr[b] * m[b];
         }
+        group_gather4(gmask, G, Wr, W);
+        group_gather4(gmask, G, qr, q);
 #pragma unroll
         for (int a = 0; a < 2; ++a) {
 #pragma unroll
@@ -307,42 +441,53 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
             T acc = Bm[0][a] * q[0][b];
 #pragma unroll
             for (int tt = 1; tt < 4; ++tt) acc = acc + Bm[tt][a] * q[tt][b];
-            S2[a][b] = acc + r[a][b] * m[a];
+            S2[a][b] = acc + rr[a][b] * m[a];
           }
         }
-        mm(AdT, P, T1);
-        mm(T1, Ad, T2);
-        T Qxx11[4][4], Qxx12[4][2], G[2][2], Qvz1[2][4], Qvz2[2][2], Qvv[2][2];
+        // Row r of T2 = (Ad^T P) Ad, of Qxx11 and of Qxx12 = Ad^T W; column r
+        // of Qvz1 = W^T Ad. AdT[j] is column j of Ad, gathered.
+        T AdT[4][4], T1r[4], Qxx11r[4], Qxx12r[2], Qvz1c[2];
+        group_gather4(gmask, G, adc, AdT);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < 4; ++j) {
+          T acc = adc[0] * P[0][j];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            Qxx11[i][j] = (i == j) ? T2[i][j] + (T(2) * w4[i] + dal[i]) : T2[i][j];
-        mm(AdT, W, Qxx12);
+          for (int tt = 1; tt < 4; ++tt) acc = acc + adc[tt] * P[tt][j];
+          T1r[j] = acc;
+        }
 #pragma unroll
-        for (int a = 0; a < 2; ++a) {
+        for (int j = 0; j < 4; ++j) {
+          T acc = T1r[0] * AdT[j][0];
+#pragma unroll
+          for (int tt = 1; tt < 4; ++tt) acc = acc + T1r[tt] * AdT[j][tt];
+          Qxx11r[j] = (j == r) ? acc + (T(2) * w4r + dalr) : acc;
+        }
+        // Qvz1 = W^T Ad is Qxx12's transpose term for term, so column r of
+        // Qvz1 is row r of Qxx12 bit for bit.
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          T acc = adc[0] * W[0][b];
+#pragma unroll
+          for (int tt = 1; tt < 4; ++tt) acc = acc + adc[tt] * W[tt][b];
+          Qxx12r[b] = acc;
+          Qvz1c[b] = acc;
+        }
+        T G2[2][2], Qvz2[2][2], Gv[2][2], Qvv[2][2];
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
 #pragma unroll
           for (int b = 0; b < 2; ++b) {
             T acc = W[0][a] * Bm[0][b];
 #pragma unroll
             for (int tt = 1; tt < 4; ++tt) acc = acc + W[tt][a] * Bm[tt][b];
-            G[a][b] = acc + S2[a][b] * m[b];
+            G2[a][b] = acc + S2[a][b] * m[b];
           }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            T acc = W[0][a] * Ad[0][j];
-#pragma unroll
-            for (int tt = 1; tt < 4; ++tt) acc = acc + W[tt][a] * Ad[tt][j];
-            Qvz1[a][j] = acc;
-          }
-        }
-        T Gv[2][2];
 #pragma unroll
         for (int a = 0; a < 2; ++a)
 #pragma unroll
           for (int b = 0; b < 2; ++b) {
-            Qvz2[a][b] = (a == b) ? G[a][b] + hu[a] : G[a][b];
-            Gv[a][b] = (a == b) ? G[a][b] + (T(2) * Rdu + hu[a] + T(1e-8)) : G[a][b];
+            Qvz2[a][b] = (a == b) ? G2[a][b] + hu[a] : G2[a][b];
+            Gv[a][b] = (a == b) ? G2[a][b] + (T(2) * Rdu + hu[a] + T(1e-8)) : G2[a][b];
           }
 #pragma unroll
         for (int a = 0; a < 2; ++a)
@@ -354,70 +499,47 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
                -c.du_b - v1, c.du_b - v0, c.du_b - v1, d0, d1, f0, f1);
         const T gn_k = nan_max(dabs(d0), dabs(d1));
         gn = (k == N - 1) ? gn_k : nan_max(gn, gn_k);
-        const T b0[6] = {Qvz1[0][0], Qvz1[0][1], Qvz1[0][2], Qvz1[0][3],
-                         Qvz2[0][0], Qvz2[0][1]};
-        const T b1[6] = {Qvz1[1][0], Qvz1[1][1], Qvz1[1][2], Qvz1[1][3],
-                         Qvz2[1][0], Qvz2[1][1]};
-        T g0[6], g1[6];
-        gains2<T, 6>(Qvv[0][0], Qvv[0][1], Qvv[1][1], f0, f1, b0, b1, g0, g1);
-        T k1m[2][4], k2m[2][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          k1m[0][j] = g0[j];
-          k1m[1][j] = g1[j];
-        }
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          k2m[0][j] = g0[4 + j];
-          k2m[1][j] = g1[4 + j];
-        }
-        D[k][0] = d0;
-        D[k][1] = d1;
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) K1[k][a][j] = k1m[a][j];
-          K2[k][a][0] = k2m[a][0];
-          K2[k][a][1] = k2m[a][1];
+        // Gains on the free set: column r of K1 and both columns of K2.
+        const T b0[3] = {Qvz1c[0], Qvz2[0][0], Qvz2[0][1]};
+        const T b1[3] = {Qvz1c[1], Qvz2[1][0], Qvz2[1][1]};
+        T g0[3], g1[3];
+        gains2<T, 3>(Qvv[0][0], Qvv[0][1], Qvv[1][1], f0, f1, b0, b1, g0, g1);
+        const T k1c[2] = {g0[0], g1[0]};
+        const T k2m[2][2] = {{g0[1], g0[2]}, {g1[1], g1[2]}};
+        if (owner) {
+          S(L::kK1 + 8 * k + r) = k1c[0];
+          S(L::kK1 + 8 * k + 4 + r) = k1c[1];
+          const T k2f[4] = {k2m[0][0], k2m[0][1], k2m[1][0], k2m[1][1]};
+          S(L::kK2 + 4 * k + r) = pick4(k2f, r);
+          if (r < 2) S(L::kD + 2 * k + r) = (r == 0) ? d0 : d1;
         }
 
-        // Value update.
+        // Value update: row r of P and q, vx4[r]; vu2 and rr replicated.
         const T w2[2] = {Qvv[0][0] * d0 + Qvv[0][1] * d1 + Qvl[0],
                          Qvv[1][0] * d0 + Qvv[1][1] * d1 + Qvl[1]};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          vx4[i] = Qx4[i] + (k1m[0][i] * w2[0] + k1m[1][i] * w2[1])
-                   + (Qvz1[0][i] * d0 + Qvz1[1][i] * d1);
+        const T vxr = Qxr + (k1c[0] * w2[0] + k1c[1] * w2[1])
+                      + (Qvz1c[0] * d0 + Qvz1c[1] * d1);
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           vu2[j] = Qu2[j] + (k2m[0][j] * w2[0] + k2m[1][j] * w2[1])
                    + (Qvz2[0][j] * d0 + Qvz2[1][j] * d1);
-        T K1Q[4][2], M1[4][4], Pn[4][4];
+        const T K1Qr[2] = {k1c[0] * Qvv[0][0] + k1c[1] * Qvv[1][0],
+                           k1c[0] * Qvv[0][1] + k1c[1] * Qvv[1][1]};
+        const T kq[4] = {k1c[0], k1c[1], Qvz1c[0], Qvz1c[1]};
+        T KQ[4][4];   // KQ[j] = {K1[0][j], K1[1][j], Qvz1[0][j], Qvz1[1][j]}
+        group_gather4(gmask, G, kq, KQ);
+        T Pnr[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int b = 0; b < 2; ++b)
-            K1Q[i][b] = k1m[0][i] * Qvv[0][b] + k1m[1][i] * Qvv[1][b];
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            M1[i][j] = k1m[0][i] * Qvz1[0][j] + k1m[1][i] * Qvz1[1][j];
+        for (int j = 0; j < 4; ++j) {
+          const T M1rj = k1c[0] * KQ[j][2] + k1c[1] * KQ[j][3];
+          const T M1jr = KQ[j][0] * Qvz1c[0] + KQ[j][1] * Qvz1c[1];
+          Pnr[j] = Qxx11r[j] + (K1Qr[0] * KQ[j][0] + K1Qr[1] * KQ[j][1]) + M1rj + M1jr;
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            Pn[i][j] = Qxx11[i][j] + (K1Q[i][0] * k1m[0][j] + K1Q[i][1] * k1m[1][j])
-                       + M1[i][j] + M1[j][i];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) P[i][j] = T(0.5) * (Pn[i][j] + Pn[j][i]);
-#pragma unroll
-          for (int b = 0; b < 2; ++b)
-            q[i][b] = Qxx12[i][b] + (K1Q[i][0] * k2m[0][b] + K1Q[i][1] * k2m[1][b])
-                      + (k1m[0][i] * Qvz2[0][b] + k1m[1][i] * Qvz2[1][b])
-                      + (Qvz1[0][i] * k2m[0][b] + Qvz1[1][i] * k2m[1][b]);
-        }
+        for (int b = 0; b < 2; ++b)
+          qr[b] = Qxx12r[b] + (K1Qr[0] * k2m[0][b] + K1Qr[1] * k2m[1][b])
+                  + (k1c[0] * Qvz2[0][b] + k1c[1] * Qvz2[1][b])
+                  + (Qvz1c[0] * k2m[0][b] + Qvz1c[1] * k2m[1][b]);
         T K2Q[2][2], M2[2][2], rn[2][2];
 #pragma unroll
         for (int a = 0; a < 2; ++a)
@@ -435,51 +557,82 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
 #pragma unroll
         for (int a = 0; a < 2; ++a)
 #pragma unroll
-          for (int b = 0; b < 2; ++b) r[a][b] = T(0.5) * (rn[a][b] + rn[b][a]);
+          for (int b = 0; b < 2; ++b) rr[a][b] = T(0.5) * (rn[a][b] + rn[b][a]);
+        T Pn[4][4];
+        group_gather4(gmask, G, Pnr, Pn);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = i; j < 4; ++j) {
+            P[i][j] = T(0.5) * (Pn[i][j] + Pn[j][i]);
+            P[j][i] = P[i][j];
+          }
+        T vxs[1] = {vxr}, vxg[4][1];
+        group_gather4(gmask, G, vxs, vxg);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) vx4[i] = vxg[i][0];
       }
       gnorm = gn;
+      __syncwarp(gmask);
 
-      // ---- forward line search with per-lane acceptance ----
+      // ---- forward line search, the alphas in parallel over the group ----
       bool accepted = done;   // done lanes never move
       T c_best = cost;
 #pragma unroll 1
-      for (int ia = 0; ia < n_alphas && !accepted; ++ia) {
-        const T al = c.alpha[ia];
+      for (int a0 = 0; a0 < n_alphas && !accepted; a0 += G) {
+        const int ia = a0 + t;
         T c_new = T(0);
-#pragma unroll 1
-        for (int k = 0; k < N; ++k) {
-          T v[2], u[2];
-#pragma unroll
-          for (int a = 0; a < 2; ++a) {
-            T mv1 = K1[k][a][0] * (Xt[k][0] - X[k][0]);
-#pragma unroll
-            for (int tt = 1; tt < 4; ++tt) mv1 = mv1 + K1[k][a][tt] * (Xt[k][tt] - X[k][tt]);
-            const T mv2 = K2[k][a][0] * (Ut[k][0] - U[k][0])
-                          + K2[k][a][1] * (Ut[k][1] - U[k][1]);
-            v[a] = clip(V[k][a] + al * D[k][a] + mv1 + mv2, -c.du_b, c.du_b);
-          }
-          c_new = c_new + stage_cost_al(Xt[k], Ut[k], v, k, mu);
-          u[0] = clip(Ut[k][0] + v[0], -c.u_b, c.u_b);
-          u[1] = clip(Ut[k][1] + v[1], -c.u_b, c.u_b);
-          rk4(Xt[k], u, Xt[k + 1]);
-          Ut[k + 1][0] = u[0];
-          Ut[k + 1][1] = u[1];
-          Vt[k][0] = v[0];
-          Vt[k][1] = v[1];
-        }
-        c_new = c_new + track(Xt[N], N);
-        if (c_new < cost - T(1e-12)) {
-          accepted = true;
-          c_best = c_new;
+        bool ok = false;
+        if (ia < n_alphas) {
+          const T al = c.alpha[ia];
+          T xt[4] = {x0[0], x0[1], x0[2], x0[3]}, ut[2] = {up0[0], up0[1]};
 #pragma unroll 1
           for (int k = 0; k < N; ++k) {
-            V[k][0] = Vt[k][0];
-            V[k][1] = Vt[k][1];
-            U[k + 1][0] = Ut[k + 1][0];
-            U[k + 1][1] = Ut[k + 1][1];
+            T x[4], up[2], v[2], u[2], xn[4];
+            Xk(k, x);
+            Uk(k, up);
 #pragma unroll
-            for (int i = 0; i < 4; ++i) X[k + 1][i] = Xt[k + 1][i];
+            for (int a = 0; a < 2; ++a) {
+              const int k1 = L::kK1 + 8 * k + 4 * a;
+              T mv1 = S(k1) * (xt[0] - x[0]);
+#pragma unroll
+              for (int tt = 1; tt < 4; ++tt) mv1 = mv1 + S(k1 + tt) * (xt[tt] - x[tt]);
+              const int k2 = L::kK2 + 4 * k + 2 * a;
+              const T mv2 = S(k2) * (ut[0] - up[0]) + S(k2 + 1) * (ut[1] - up[1]);
+              v[a] = clip(Vk(k, a) + al * S(L::kD + 2 * k + a) + mv1 + mv2,
+                          -c.du_b, c.du_b);
+            }
+            c_new = c_new + stage_cost_al(xt, ut, v, k, mu);
+            u[0] = clip(ut[0] + v[0], -c.u_b, c.u_b);
+            u[1] = clip(ut[1] + v[1], -c.u_b, c.u_b);
+            rk4(xt, u, xn);
+            const int e = L::kTrial + t;
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              S(e + (4 * k + i) * G) = xn[i];
+              xt[i] = xn[i];
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              S(e + (L::kU + 2 * k + j) * G) = u[j];
+              S(e + (L::kV + 2 * k + j) * G) = v[j];
+              ut[j] = u[j];
+            }
           }
+          c_new = c_new + track(xt, N);
+          ok = c_new < cost - T(1e-12);
+        }
+        const unsigned hit = (__ballot_sync(gmask, ok) >> gfirst)
+                             & ((G == 32) ? 0xffffffffu : ((1u << G) - 1u));
+        if (hit != 0u) {
+          const int win = __ffs(hit) - 1;
+          accepted = true;
+          c_best = __shfl_sync(gmask, c_new, win, G);
+          __syncwarp(gmask);
+#pragma unroll 1
+          for (int e = t; e < L::kTraj; e += G)
+            S(L::kCur + e) = S(L::kTrial + e * G + win);
+          __syncwarp(gmask);
         }
       }
       const T rel = (cost - c_best) / (dabs(cost) + T(1));
@@ -491,17 +644,20 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
     viol = T(0);
 #pragma unroll 1
     for (int k = 0; k < N; ++k) {
-      T C[4];
-      con4(X[k], C);
+      T x[4], C[4];
+      Xk(k, x);
+      con4(x, C);
       T cm = nan_max(C[0], T(0));
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        lam[k][i] = nan_max(T(0), lam[k][i] + mu * C[i]);
-        if (i > 0) cm = nan_max(cm, nan_max(C[i], T(0)));
-      }
+      for (int i = 1; i < 4; ++i) cm = nan_max(cm, nan_max(C[i], T(0)));
       viol = nan_max(viol, cm);
+      if (owner) {
+        T& lam = S(L::kLam + 4 * k + r);
+        lam = nan_max(T(0), lam + mu * pick4(C, r));
+      }
     }
     mu = (viol > c.tol_con) ? nan_min(mu * c.mu_scale, c.mu_max) : mu;
+    __syncwarp(gmask);
   }
 
   // Raw (unpenalised) cost of the final iterate.
@@ -510,10 +666,10 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
   for (int i = 0; i < 4; ++i) x[i] = x0[i];
 #pragma unroll 1
   for (int k = 0; k < N; ++k) {
-    T u[2] = {clip(up[0] + V[k][0], -c.u_b, c.u_b),
-              clip(up[1] + V[k][1], -c.u_b, c.u_b)};
+    const T v0 = Vk(k, 0), v1 = Vk(k, 1);
+    T u[2] = {clip(up[0] + v0, -c.u_b, c.u_b), clip(up[1] + v1, -c.u_b, c.u_b)};
     raw = raw + (track(x, k) + Ru * (u[0] * u[0] + u[1] * u[1])
-                 + Rdu * (V[k][0] * V[k][0] + V[k][1] * V[k][1]));
+                 + Rdu * (v0 * v0 + v1 * v1));
     T xn[4];
     rk4(x, u, xn);
 #pragma unroll
@@ -524,14 +680,53 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
   raw = raw + track(x, N);
 
 #pragma unroll 1
-  for (int k = 0; k < N; ++k) {
-    V_out[static_cast<size_t>(2 * k) * sB + lane] = V[k][0];
-    V_out[static_cast<size_t>(2 * k + 1) * sB + lane] = V[k][1];
+  for (int e = t; e < 2 * N; e += G)
+    V_out[static_cast<size_t>(e) * sB + lane] = S(L::kCur + L::kV + e);
+  if (t == 0) {
+    cost_out[lane] = raw;
+    viol_out[lane] = viol;
+    gnorm_out[lane] = gnorm;
   }
-  cost_out[lane] = raw;
-  viol_out[lane] = viol;
-  gnorm_out[lane] = gnorm;
 }
+
+// Launch geometry of one instance: lanes and dynamic shared bytes per block.
+template <typename T, int N, int G>
+struct Instance {
+  static constexpr int kLanes = kThreads / G;
+  static constexpr size_t kShared = sizeof(T) * kLanes * Layout<N, G>::kPerLane;
+
+  // Raise the dynamic shared limit above the default 48 KB, once.
+  static cudaError_t prepare() {
+    static cudaError_t err = cudaFuncSetAttribute(
+        rmpc_solve_kernel<T, N, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kShared));
+    return err;
+  }
+
+  static int run(const T* th, const T* ref, const T* w, const T* z0, const T* V0,
+                 T* V, T* cost, T* viol, T* gnorm, int B, int n_iters,
+                 int n_alphas, int al_rounds, const Consts<T>& c,
+                 cudaStream_t s) {
+    const cudaError_t err = prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((B + kLanes - 1) / kLanes);
+    rmpc_solve_kernel<T, N, G><<<grid, kThreads, kShared, s>>>(
+        th, ref, w, z0, V0, V, cost, viol, gnorm, B, n_iters, n_alphas,
+        al_rounds, c);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  static int geometry(int* threads, int* lanes, int* shared, int* blocks_per_sm) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *threads = kThreads;
+    *lanes = kLanes;
+    *shared = static_cast<int>(kShared);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, rmpc_solve_kernel<T, N, G>, kThreads, kShared);
+    return static_cast<int>(err);
+  }
+};
 
 template <typename T>
 int launch(const T* th, const T* ref, const T* w, const T* z0, const T* V0,
@@ -539,6 +734,7 @@ int launch(const T* th, const T* ref, const T* w, const T* z0, const T* V0,
            int n_alphas, int al_rounds, double dt, double u_bound,
            double du_bound, double vmax, double v_eps, double mu_init,
            double mu_scale, double mu_max, double tol_con, void* stream) {
+  if (N != 6 && N != 20) return kBadShape;
   if (n_iters < 1 || al_rounds < 1 || n_alphas < 1 || n_alphas > kMaxAlphas)
     return kBadBudget;
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -557,23 +753,19 @@ int launch(const T* th, const T* ref, const T* w, const T* z0, const T* V0,
   c.tol_con = static_cast<T>(tol_con);
   for (int i = 0; i < kMaxAlphas; ++i)
     c.alpha[i] = static_cast<T>(std::pow(0.6, i));
-  const dim3 grid((B + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 6:
-      rmpc_solve_kernel<T, 6><<<grid, kThreads, 0, s>>>(
-          th, ref, w, z0, V0, V, cost, viol, gnorm, B, n_iters, n_alphas,
-          al_rounds, c);
-      break;
-    case 20:
-      rmpc_solve_kernel<T, 20><<<grid, kThreads, 0, s>>>(
-          th, ref, w, z0, V0, V, cost, viol, gnorm, B, n_iters, n_alphas,
-          al_rounds, c);
-      break;
-    default:
-      return kBadShape;
+  if (g_group == 8) {
+    if (N == 6)
+      return Instance<T, 6, 8>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
+                                    B, n_iters, n_alphas, al_rounds, c, s);
+    return Instance<T, 20, 8>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
+                                   B, n_iters, n_alphas, al_rounds, c, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (N == 6)
+    return Instance<T, 6, kGroup>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
+                                       B, n_iters, n_alphas, al_rounds, c, s);
+  return Instance<T, 20, kGroup>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
+                                      B, n_iters, n_alphas, al_rounds, c, s);
 }
 
 }  // namespace
@@ -604,6 +796,33 @@ int rmpc_solve_f64(const double* th, const double* ref, const double* w,
                         n_iters, n_alphas, al_rounds, dt, u_bound, du_bound,
                         vmax, v_eps, mu_init, mu_scale, mu_max, tol_con,
                         stream);
+}
+
+// Threads and lanes per block, dynamic shared bytes per block and resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the
+// instance a call with horizon N and element size itemsize (4 or 8) runs.
+int rmpc_solve_geometry(int N, int itemsize, int* threads, int* lanes,
+                        int* shared, int* blocks_per_sm) {
+  if ((N != 6 && N != 20) || (itemsize != 4 && itemsize != 8)) return kBadShape;
+  if (g_group == 8) {
+    if (itemsize == 4)
+      return N == 6 ? Instance<float, 6, 8>::geometry(threads, lanes, shared, blocks_per_sm)
+                    : Instance<float, 20, 8>::geometry(threads, lanes, shared, blocks_per_sm);
+    return N == 6 ? Instance<double, 6, 8>::geometry(threads, lanes, shared, blocks_per_sm)
+                  : Instance<double, 20, 8>::geometry(threads, lanes, shared, blocks_per_sm);
+  }
+  if (itemsize == 4)
+    return N == 6 ? Instance<float, 6, kGroup>::geometry(threads, lanes, shared, blocks_per_sm)
+                  : Instance<float, 20, kGroup>::geometry(threads, lanes, shared, blocks_per_sm);
+  return N == 6 ? Instance<double, 6, kGroup>::geometry(threads, lanes, shared, blocks_per_sm)
+                : Instance<double, 20, kGroup>::geometry(threads, lanes, shared, blocks_per_sm);
+}
+
+// Selects the threads per lane (4 or 8) of the calls that follow.
+int rmpc_solve_set_group(int G) {
+  if (G != 4 && G != 8) return kBadShape;
+  g_group = G;
+  return 0;
 }
 
 }  // extern "C"

@@ -14,7 +14,8 @@ ref (N+1,4,B), w (4,B) = [Qp, Qv, Ru, Rdu], z0 (6,B) = [x0, u_prev],
 V0 (N,2,B). Returns V (N,2,B), and the raw cost, viol and gnorm (B,). V0
 is clipped to +-du_bound first. gnorm is the max |feedforward| of the last
 backward pass, taken before its line search. On CUDA tensors it launches
-`csrc/rmpc_solve.cu` (one thread per lane); on CPU tensors it runs
+`csrc/rmpc_solve.cu` (a lane per group of 4 threads, the horizon in shared
+memory, the line search's alphas in parallel); on CPU tensors it runs
 `rmpc_solve_reference`, the plain PyTorch version of `_rmpc_kernel`.
 """
 
@@ -352,27 +353,183 @@ def rmpc_solve(theta, ref, w, z0, V0, dt: float, u_bound: float = 0.4,
 rmpc_solve.launches = 0
 
 
-# Per-lane operation counts of the solve's parts, dense 4x4 algebra as
-# written (FLOPs; tanh, sin and cos apart as transcendentals):
-#   rollout stage      ~245 + 16 (AL stage cost ~65, rk4 step ~180)
-#   backward stage    ~2224 + 28 (RK4 Jacobian ~950: 3 model and 4
-#                     Jacobian evaluations, three 4x4 and three 4x2
-#                     products; Riccati algebra ~1270: Q blocks ~650, box
-#                     QP ~150, gains ~75, value update ~400)
-#   trial stage        ~285 + 16 (control law ~40, AL stage cost ~65, rk4)
-#   multiplier update  ~24 per stage
-_ROLLOUT, _BACKWARD, _TRIAL, _AL_UPDATE = 245, 2224, 285, 24
-_T_ROLLOUT, _T_BACKWARD, _T_TRIAL = 16, 28, 16
+def launch_geometry(N: int, dtype: torch.dtype) -> dict:
+    """Launch geometry of the CUDA instance for horizon N and `dtype`:
+    threads and lanes per block, dynamic shared bytes per block, and the
+    blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Needs the built library and a card."""
+    lib = _build.library()
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.rmpc_solve_geometry(N, torch.empty((), dtype=dtype).element_size(),
+                                  *(ctypes.byref(v) for v in vals))
+    if err == _build.BAD_SHAPE:
+        raise NotImplementedError(f"no rmpc_solve instance for N={N}, {dtype}")
+    if err != 0:
+        raise RuntimeError(f"rmpc_solve geometry query failed: "
+                           f"{_build.error_string(err)} (code {err})")
+    return dict(zip(("threads", "lanes", "shared_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+def set_group(G: int) -> None:
+    """Threads per lane (4 or 8) of the CUDA launches that follow."""
+    if _build.library().rmpc_solve_set_group(G) != 0:
+        raise ValueError(f"rmpc_solve runs 4 or 8 threads per lane, not {G}")
+
+
+# Per-lane operation counts of the solve (FLOPs; tanh, sin and cos apart
+# as transcendentals), over the function's structural non-zeros. The
+# continuous Jacobian A of `models.dynamics.rmpc_jac` has 10 fixed
+# non-zeros of 16, two of them the unit entries of the position rows, which
+# multiply nothing, and B has 2 of 8. The x and y axes couple through theta,
+# so the RK4 chain makes Ad and Bd dense and the Riccati recursion is dense
+# from its second stage on; `_rk4_jac_counts` and `_stage_counts` count the
+# products over the non-zeros they propagate (m non-zero pairs into one
+# entry are m multiplies, less the unit factors, and m - 1 adds). The
+# scalar parts:
+#   model f4           32 (two velocity rows copy; 2 tanh)
+#   rk4 step           4 f4 + 52 state updates = 180 (8 tanh, 2 sin)
+#   rollout stage      rk4 + AL stage cost ~65 = 245
+#   trial stage        rk4 + AL stage cost + control law ~40 = 285
+#   backward stage     3 f4, A's rows at 4 states 56, the stage states 24,
+#                      u and its mask 2, the cost quadratics and PHR rows
+#                      48, Qvv 16, the box QP ~150, the gains' H 13, w2 8
+#                      = 413 (8 tanh, 2 sin, 2 cos), and the products
+#   multiplier update  24 per stage
+_ROLLOUT, _TRIAL, _AL_UPDATE = 245, 285, 24
+_BACK_SCALAR = 3 * 32 + 56 + 24 + 2 + 48 + 16 + 150 + 13 + 8
+_T_STEP, _T_BACKWARD = 10, 12
+# Structural non-zeros (row, column) of rmpc_jac's A and B, and A's units.
+A_NZ = ((0, 1), (1, 0), (1, 1), (1, 2), (1, 3), (2, 3), (3, 0), (3, 1),
+        (3, 2), (3, 3))
+A_UNIT = ((0, 1), (2, 3))
+B_NZ = ((1, 0), (3, 1))
+
+
+def _mask(shape, nz=()):
+    m = torch.zeros(shape, dtype=torch.bool)
+    for ij in nz:
+        m[ij] = True
+    return m
+
+
+def _nnz(m) -> int:
+    return int(m.sum())
+
+
+def _mmc(a, b, unit=None):
+    """(mask, FLOPs) of the product of two structurally sparse matrices;
+    `unit` marks entries of `a` that are exactly 1."""
+    pairs = a.long() @ b.long()
+    mults = pairs - (0 if unit is None else unit.long() @ b.long())
+    return pairs > 0, int((mults + (pairs - 1).clamp(min=0)).sum())
+
+
+def _addc(*ms):
+    """(mask, FLOPs) of a sum of structurally sparse terms."""
+    out, n = ms[0], 0
+    for m in ms[1:]:
+        n += _nnz(out & m)
+        out = out | m
+    return out, n
+
+
+def _rk4_jac_counts():
+    """(Ad mask, Bd mask, FLOPs) of the RK4 Jacobian chain of `rk4_jac`:
+    dk = A_s (I + h dk_prev) and A_s (h dku_prev) + B_s for the stages 2-4
+    (dk_1 = A, B), summed S += 2 dk, 2 dk, dk; Ad = I + dt/6 Sx and
+    Bd = dt/6 Su. A's mask is the same at every stage."""
+    A, B = _mask((4, 4), A_NZ), _mask((4, 2), B_NZ)
+    unit = _mask((4, 4), A_UNIT)
+    eye = torch.eye(4) > 0
+    n = 0
+    Sx, Su, dkx, dku = A, B, A, B
+    for stage in range(3):
+        E, c = _addc(dkx, eye)
+        n += _nnz(dkx) + c + _nnz(dku)              # I + h dkx, h dku
+        dkx, c1 = _mmc(A, E, unit)
+        dku, c2 = _mmc(A, dku, unit)
+        dku, c3 = _addc(dku, B)
+        Sx, c4 = _addc(Sx, dkx)
+        Su, c5 = _addc(Su, dku)
+        n += c1 + c2 + c3 + c4 + c5
+        if stage < 2:
+            n += _nnz(dkx) + _nnz(dku)              # the factor 2
+    Ad, c = _addc(Sx, eye)
+    n += _nnz(Sx) + c + _nnz(Su)
+    return Ad, Su, n
+
+
+def _stage_counts(N: int) -> int:
+    """FLOPs of one backward pass's products over its N stages, over the
+    structural non-zeros, in the order `csrc/rmpc_solve.cu` writes the
+    algebra: the RK4 Jacobian chain, the cost gradients, the partitioned
+    Riccati update over z = [x(4), u_prev(2)] with `gains2` on the columns
+    of [Qvz1 | Qvz2], and the value update. P starts diagonal and q, r at
+    zero, so the last stage is cheaper than the others."""
+    Ad, Bd, jac = _rk4_jac_counts()
+    eye = torch.eye(4) > 0
+    col = torch.ones((4, 1), dtype=torch.bool)
+    P, q, r = eye, _mask((4, 2)), _mask((2, 2))
+    back = 0
+    for _ in range(N):
+        n = jac + _nnz(Bd)                            # Bm = Bd m
+        n += _mmc(Bd.T, col)[1] + 4 + 4               # core, Qu2, Qvl
+        n += _mmc(Ad.T, col)[1] + 4                   # Qx4
+        W, c1 = _mmc(P, Bd)
+        W, c2 = _addc(W, q)
+        n += c1 + _nnz(q) + c2                        # W = P Bm + q m
+        S2, c1 = _mmc(Bd.T, q)
+        S2, c2 = _addc(S2, r)
+        n += c1 + _nnz(r) + c2                        # S2 = Bm'q + r m
+        T1, c1 = _mmc(Ad.T, P)
+        Qxx11, c2 = _mmc(T1, Ad)
+        n += c1 + c2 + 12                             # + diag(2 w4 + dal)
+        Qxx12, c1 = _mmc(Ad.T, W)                     # Qvz1 = Qxx12'
+        G, c2 = _mmc(W.T, Bd)
+        G, c3 = _addc(G, S2)
+        n += c1 + c2 + _nnz(S2) + c3
+        Qvz1, Qvz2 = Qxx12.T, G | eye[:2, :2]         # Qvz2 = G + diag(hu)
+        n += 2
+        # gains2 per non-zero column of [Qvz1 | Qvz2] (both rows, since H
+        # couples them): b * f, two products, two divisions.
+        K1 = Qvz1.any(0).expand(2, 4)
+        K2 = Qvz2.any(0).expand(2, 2)
+        n += 12 * (_nnz(K1[0]) + _nnz(K2[0]))
+        two = torch.ones((2, 1), dtype=torch.bool)
+        Quu = torch.ones((2, 2), dtype=torch.bool)
+        # vx4 = Qx4 + K1'w2 + Qvz1'd and vu2 = Qu2 + K2'w2 + Qvz2'd.
+        n += _mmc(K1.T, two)[1] + _mmc(Qvz1.T, two)[1] + 8
+        n += _mmc(K2.T, two)[1] + _mmc(Qvz2.T, two)[1] + 4
+        K1Q, c1 = _mmc(K1.T, Quu)
+        M1, c2 = _mmc(K1.T, Qvz1)
+        KQK, c3 = _mmc(K1Q, K1)
+        Pn, c4 = _addc(Qxx11, KQK, M1, M1.T)
+        P = Pn | Pn.T
+        n += c1 + c2 + c3 + c4 + 2 * _nnz(P)
+        a1, c1 = _mmc(K1Q, K2)
+        a2, c2 = _mmc(K1.T, Qvz2)
+        a3, c3 = _mmc(Qvz1.T, K2)
+        q, c4 = _addc(Qxx12, a1, a2, a3)
+        n += c1 + c2 + c3 + c4
+        K2Q, c1 = _mmc(K2.T, Quu)
+        M2, c2 = _mmc(K2.T, Qvz2)
+        KQK2, c3 = _mmc(K2Q, K2)
+        rn, c4 = _addc(Qvz2, KQK2, M2, M2.T)
+        r = rn | rn.T
+        n += c1 + c2 + c3 + c4 + 2 * _nnz(r)
+        back += _BACK_SCALAR + n
+    return back + 16                                  # the terminal value
 
 
 def _counts(N, n_iters, al_rounds, trials):
     """(FLOPs, transcendentals) of one lane that ran `trials` line-search
     trials in all."""
     rollout = N * _ROLLOUT + 12
-    flops = (al_rounds * (rollout + N * _AL_UPDATE + n_iters * N * _BACKWARD)
+    flops = (al_rounds * (rollout + N * _AL_UPDATE + n_iters * _stage_counts(N))
              + rollout + trials * (N * _TRIAL + 12))
-    trans = (al_rounds * (N * _T_ROLLOUT + n_iters * N * _T_BACKWARD)
-             + N * _T_ROLLOUT + trials * N * _T_TRIAL)
+    trans = (al_rounds * (N * _T_STEP + n_iters * N * _T_BACKWARD)
+             + N * _T_STEP + trials * N * _T_STEP)
     return flops, trans
 
 
@@ -388,10 +545,10 @@ def work(N: int, n_iters: int, al_rounds: int, B: int, trials: int,
     """(FLOPs, transcendentals, bytes) of one call over B lanes that ran
     `trials` line-search trials in all (`stats["trials"].sum()` of the
     plain version): the work this call's data needs, for the roofline
-    bound. Bytes: theta, ref, w, z0, V0 read once; V, cost, viol, gnorm
-    written once."""
+    bound, however the kernel schedules its trials. Bytes: theta, ref, w,
+    z0, V0 read once; V, cost, viol, gnorm written once."""
     flops, trans = _counts(N, n_iters, al_rounds, 0)
     flops = B * flops + trials * (N * _TRIAL + 12)
-    trans = B * trans + trials * N * _T_TRIAL
+    trans = B * trans + trials * N * _T_STEP
     values = 14 + (N + 1) * 4 + 4 + 6 + N * 2 + N * 2 + 3
     return flops, trans, B * values * itemsize
