@@ -933,19 +933,6 @@ def phase_kernel_times(dev: torch.device, card: str) -> dict:
               f"per SM resident, {-(-B // geo['lanes'])} blocks at B={B}")
     out["rmpc_solve"] = {"ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
-    # Threads per lane: 4 against 8, in turns, on the same inputs.
-    base = krs.rmpc_solve(*args, **RMPC_KW)
-    for G in (8, 4, 8, 4):
-        krs.set_group(G)
-        got = krs.rmpc_solve(*args, **RMPC_KW)
-        same = all(bool(torch.equal(x, y)) for x, y in zip(got, base))
-        g_ms = median_ms(lambda: krs.rmpc_solve(*args, **RMPC_KW), 20)
-        geo = krs.launch_geometry(RMPC_N, torch.float32)
-        print(f"[times] rmpc_solve G={G}: {g_ms:.4f} ms per call, result "
-              f"equal to G=4's: {same}, {geo} [{card}]")
-        if not same:
-            raise AssertionError(f"rmpc_solve G={G} differs from G=4")
-    krs.set_group(4)
 
     args, lo, hi, reg = riccati_problem(620, 20, 6, torch.float32, dev)
     kric.riccati_backward(*args, lo, hi, reg)

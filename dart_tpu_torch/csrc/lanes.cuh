@@ -289,4 +289,65 @@ __device__ __forceinline__ void group_gather4(unsigned mask, int width,
     for (int j = 0; j < M; ++j) full[i][j] = __shfl_sync(mask, own[j], i, width);
 }
 
+// boxqp2 over a group of 4 threads: thread r evaluates the candidates
+// i = r, r + 4, r + 8 (i = 3 s0 + s1, boxqp2's order) with the same
+// operations as boxqp2, the group gathers the 9 masked objectives, every
+// thread takes the first minimum in boxqp2's order (candidate 0, then
+// strict `<`), and the winner's clipped step comes from its thread. The
+// result is boxqp2's, bit for bit, in every thread of the group; the warp
+// issues three candidates' work instead of nine.
+template <typename T>
+__device__ __forceinline__ void boxqp2_group(unsigned mask, int width, int r,
+                                             T q00, T q01, T q11, T Qu0, T Qu1,
+                                             T lo0, T lo1, T hi0, T hi1,
+                                             T& d0_out, T& d1_out,
+                                             T& f0_out, T& f1_out) {
+  const T tol = T(1e-9);
+  const T det = guard_tiny(q00 * q11 - q01 * q01);
+  T objm[3], d0c[3], d1c[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int i = r + 4 * j;             // only i < 9 is ever read
+    const int s0 = i / 3, s1 = i % 3;
+    const bool fr0 = (j < 2) && s0 == 0, fr1 = (j < 2) && s1 == 0;
+    T d0 = (s0 == 1) ? lo0 : hi0;
+    T d1 = (s1 == 1) ? lo1 : hi1;
+    if (fr0) {
+      const T num = fr1 ? q11 * Qu0 - q01 * Qu1 : Qu0 + q01 * d1;
+      const T den = fr1 ? det : nan_max(q00, T(1e-30));
+      d0 = -num / den;
+    }
+    if (fr1) {
+      const T num = fr0 ? -q01 * Qu0 + q00 * Qu1 : Qu1 + q01 * d0;
+      const T den = fr0 ? det : nan_max(q11, T(1e-30));
+      d1 = -num / den;
+    }
+    const T g0 = q00 * d0 + q01 * d1 + Qu0;
+    const T g1 = q01 * d0 + q11 * d1 + Qu1;
+    const bool ok0 = fr0 ? (d0 >= lo0 - tol && d0 <= hi0 + tol)
+                   : (s0 == 1) ? (g0 >= -tol) : (g0 <= tol);
+    const bool ok1 = fr1 ? (d1 >= lo1 - tol && d1 <= hi1 + tol)
+                   : (s1 == 1) ? (g1 >= -tol) : (g1 <= tol);
+    const T obj = T(0.5) * (d0 * g0 + d1 * g1) + T(0.5) * (Qu0 * d0 + Qu1 * d1);
+    objm[j] = (ok0 && ok1) ? obj : T(1e30);
+    d0c[j] = clip(d0, lo0, hi0);
+    d1c[j] = clip(d1, lo1, hi1);
+  }
+  int w = 0;
+  T best = __shfl_sync(mask, objm[0], 0, width);
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    const T o = __shfl_sync(mask, objm[i / 4], i % 4, width);
+    if (o < best) {
+      best = o;
+      w = i;
+    }
+  }
+  const int slot = w / 4, src = w % 4;
+  d0_out = __shfl_sync(mask, slot == 0 ? d0c[0] : (slot == 1 ? d0c[1] : d0c[2]), src, width);
+  d1_out = __shfl_sync(mask, slot == 0 ? d1c[0] : (slot == 1 ? d1c[1] : d1c[2]), src, width);
+  f0_out = (w / 3 == 0) ? T(1) : T(0);
+  f1_out = (w % 3 == 0) ? T(1) : T(0);
+}
+
 }  // namespace dart

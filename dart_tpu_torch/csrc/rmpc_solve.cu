@@ -83,8 +83,8 @@ using namespace dart;
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 32;   // threads per block: one warp
-constexpr int kGroup = 4;      // threads per lane
-int g_group = kGroup;          // the group size calls launch (4 or 8)
+constexpr int G = 4;           // threads per lane
+constexpr int LW = kWarp / G;  // lanes per warp
 
 template <typename T>
 struct Consts {
@@ -98,7 +98,9 @@ struct Consts {
 // A lane's shared-memory arrays, as element offsets. A trajectory is
 // X[1..N] (4N), U[1..N] (2N), V[0..N-1] (2N); X[0], U[0] stay in registers.
 // Element e of the trial trajectory of thread a sits at kTrial + e * G + a.
-template <int N, int G>
+// Stage k's Ad (row-major) and Bd sit at kJac + kJacStride * k; the stride
+// is 25, not 24, so the four threads storing four stages hit four banks.
+template <int N>
 struct Layout {
   static constexpr int kRef = 0;                    // ref[k][i], (N+1) x 4
   static constexpr int kLam = kRef + 4 * (N + 1);   // lam[k][i], N x 4
@@ -108,12 +110,14 @@ struct Layout {
   static constexpr int kTraj = 8 * N;
   static constexpr int kCur = kK2 + 4 * N;
   static constexpr int kTrial = kCur + kTraj;
-  static constexpr int kPerLane = kTrial + G * kTraj;
+  static constexpr int kJac = kTrial + G * kTraj;
+  static constexpr int kJacStride = 25;
+  static constexpr int kPerLane = kJac + kJacStride * N;
   static constexpr int kU = 4 * N;                  // U[1] within a trajectory
   static constexpr int kV = 6 * N;                  // V[0] within a trajectory
 };
 
-template <typename T, int N, int G>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
                   const T* __restrict__ w_in, const T* __restrict__ z0_in,
@@ -121,17 +125,15 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
                   T* __restrict__ cost_out, T* __restrict__ viol_out,
                   T* __restrict__ gnorm_out, int B, int n_iters, int n_alphas,
                   int al_rounds, const Consts<T> c) {
-  using L = Layout<N, G>;
-  constexpr int LW = kWarp / G;   // lanes per warp
+  using L = Layout<N>;
   const int tid = threadIdx.x;
-  const int t = tid % G;          // thread within the lane's group
-  const int r = t & 3;            // the row / column it owns
+  const int t = tid % G;          // thread within the lane's group: the
+  const int r = t;                // row / column it owns, its alpha
   const int lw = (tid % kWarp) / G;
   const int lane = (blockIdx.x * blockDim.x + tid) / G;
   if (lane >= B) return;          // the whole group leaves together
   const int gfirst = tid % kWarp - t;
-  const unsigned gmask = ((G == 32) ? 0xffffffffu : ((1u << G) - 1u)) << gfirst;
-  const bool owner = t < 4;       // one writer per owned element
+  const unsigned gmask = ((1u << G) - 1u) << gfirst;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const base = reinterpret_cast<T*>(smem_raw)
@@ -213,13 +215,13 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
     for (int i = 0; i < 4; ++i)
       xn[i] = x[i] + c.rk.dt6 * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]);
   };
-  // Column r of Ad and both columns of Bd of one RK4 step at (x, u), by the
-  // chain rule of lanes.cuh's rk4_jac: dk_1 = A_1, dk_s = A_s (I + h dk_{s-1})
-  // and dku_s = A_s (h dku_{s-1}) + B_s, S = dk_1 + 2 dk_2 + 2 dk_3 + dk_4,
+  // Ad and Bd of one RK4 step at (x, u), by the chain rule of lanes.cuh's
+  // rk4_jac, column by column: dk_1 = A_1, dk_s = A_s (I + h dk_{s-1}) and
+  // dku_s = A_s (h dku_{s-1}) + B_s, S = dk_1 + 2 dk_2 + 2 dk_3 + dk_4,
   // Ad = I + dt/6 Sx, Bd = dt/6 Su. A_s's unit rows 0 and 2 copy rows 1 and
   // 3 of their operand; B_s = g cos(u) at (1, 0) and (3, 1).
-  auto rk4_jac_col = [&](const T (&x)[4], const T (&u)[2], T (&adc)[4],
-                         T (&Bd)[4][2]) {
+  auto rk4_jac = [&](const T (&x)[4], const T (&u)[2], T (&Ad)[4][4],
+                     T (&Bd)[4][2]) {
     const T gs0 = c.g * dsin(u[0]), gs1 = c.g * dsin(u[1]);
     const T gc0 = c.g * dcos(u[0]), gc1 = c.g * dcos(u[1]);
     T a1[4][4], a3[4][4], kd[4], xs[4], tx, ty;
@@ -237,21 +239,34 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
     for (int i = 0; i < 4; ++i) xs[i] = x[i] + c.rk.dt * kd[i];
     arows(dtanh(xs[1] / c.v_eps), dtanh(xs[3] / c.v_eps), a1[3], a3[3]);
 
-    T dk[4] = {(r == 1) ? T(1) : T(0), pick4(a1[0], r), (r == 3) ? T(1) : T(0),
-               pick4(a3[0], r)};
-    T Sx[4] = {dk[0], dk[1], dk[2], dk[3]};
+    T dk[4][4], Sx[4][4];   // [column][row]
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      dk[j][0] = (j == 1) ? T(1) : T(0);
+      dk[j][1] = a1[0][j];
+      dk[j][2] = (j == 3) ? T(1) : T(0);
+      dk[j][3] = a3[0][j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) Sx[j][i] = dk[j][i];
+    }
     T du[2][4] = {{T(0), gc0, T(0), T(0)}, {T(0), T(0), T(0), gc1}};
     T Su[2][4] = {{T(0), gc0, T(0), T(0)}, {T(0), T(0), T(0), gc1}};
 #pragma unroll
     for (int s = 1; s < 4; ++s) {
       const T h = (s == 3) ? c.rk.dt : c.rk.half_dt;
-      T E[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) E[i] = (i == r) ? h * dk[i] + T(1) : h * dk[i];
-      dk[0] = E[1];
-      dk[1] = a1[s][0] * E[0] + a1[s][1] * E[1] + a1[s][2] * E[2] + a1[s][3] * E[3];
-      dk[2] = E[3];
-      dk[3] = a3[s][0] * E[0] + a3[s][1] * E[1] + a3[s][2] * E[2] + a3[s][3] * E[3];
+      for (int j = 0; j < 4; ++j) {
+        T E[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) E[i] = (i == j) ? h * dk[j][i] + T(1) : h * dk[j][i];
+        dk[j][0] = E[1];
+        dk[j][1] = a1[s][0] * E[0] + a1[s][1] * E[1] + a1[s][2] * E[2] + a1[s][3] * E[3];
+        dk[j][2] = E[3];
+        dk[j][3] = a3[s][0] * E[0] + a3[s][1] * E[1] + a3[s][2] * E[2] + a3[s][3] * E[3];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          Sx[j][i] = (s < 3) ? Sx[j][i] + T(2) * dk[j][i] : Sx[j][i] + dk[j][i];
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         T sb[4];
@@ -265,18 +280,16 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
         du[j][1] = (j == 0) ? r1 + gc0 : r1;
         du[j][2] = sb[3];
         du[j][3] = (j == 1) ? r3 + gc1 : r3;
-      }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        Sx[i] = (s < 3) ? Sx[i] + T(2) * dk[i] : Sx[i] + dk[i];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
+        for (int i = 0; i < 4; ++i)
           Su[j][i] = (s < 3) ? Su[j][i] + T(2) * du[j][i] : Su[j][i] + du[j][i];
       }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      adc[i] = (i == r) ? c.rk.dt6 * Sx[i] + T(1) : c.rk.dt6 * Sx[i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        Ad[i][j] = (i == j) ? c.rk.dt6 * Sx[j][i] + T(1) : c.rk.dt6 * Sx[j][i];
       Bd[i][0] = c.rk.dt6 * Su[0][i];
       Bd[i][1] = c.rk.dt6 * Su[1][i];
     }
@@ -365,6 +378,26 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
         }
       }
       rr[0][0] = rr[0][1] = rr[1][0] = rr[1][1] = T(0);
+      // The stages' (Ad, Bd) first, the stages spread over the group: they
+      // depend on the trajectory only, not on the Riccati recursion.
+#pragma unroll 1
+      for (int k = t; k < N; k += G) {
+        T x[4], up[2], Ad[4][4], Bd[4][2];
+        Xk(k, x);
+        Uk(k, up);
+        const T u[2] = {clip(up[0] + Vk(k, 0), -c.u_b, c.u_b),
+                        clip(up[1] + Vk(k, 1), -c.u_b, c.u_b)};
+        rk4_jac(x, u, Ad, Bd);
+        const int o = L::kJac + L::kJacStride * k;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) S(o + 4 * i + j) = Ad[i][j];
+          S(o + 16 + 2 * i) = Bd[i][0];
+          S(o + 17 + 2 * i) = Bd[i][1];
+        }
+      }
+      __syncwarp(gmask);
       const T w4r = pick4(w4, r);
       T gn = T(0);
 #pragma unroll 1
@@ -378,12 +411,13 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
         m[1] = (dabs(s1) < c.u_b) ? T(1) : T(0);
         u[0] = clip(s0, -c.u_b, c.u_b);
         u[1] = clip(s1, -c.u_b, c.u_b);
-        T adc[4], Bd[4][2], Bm[4][2];
-        rk4_jac_col(x, u, adc, Bd);
+        T adc[4], Bm[4][2];   // column r of Ad; Bd m
+        const int o = L::kJac + L::kJacStride * k;
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          Bm[i][0] = Bd[i][0] * m[0];
-          Bm[i][1] = Bd[i][1] * m[1];
+          adc[i] = S(o + 4 * i + r);
+          Bm[i][0] = S(o + 16 + 2 * i) * m[0];
+          Bm[i][1] = S(o + 17 + 2 * i) * m[1];
         }
 
         // Stage cost quadratics (make_rmpc_ocp_du.cost_quad) and PHR rows.
@@ -495,22 +529,34 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
           for (int b = 0; b < 2; ++b) Qvv[a][b] = T(0.5) * (Gv[a][b] + Gv[b][a]);
 
         T d0, d1, f0, f1;
-        boxqp2(Qvv[0][0], Qvv[0][1], Qvv[1][1], Qvl[0], Qvl[1], -c.du_b - v0,
-               -c.du_b - v1, c.du_b - v0, c.du_b - v1, d0, d1, f0, f1);
+        boxqp2_group(gmask, G, r, Qvv[0][0], Qvv[0][1], Qvv[1][1], Qvl[0], Qvl[1],
+                     -c.du_b - v0, -c.du_b - v1, c.du_b - v0, c.du_b - v1, d0,
+                     d1, f0, f1);
         const T gn_k = nan_max(dabs(d0), dabs(d1));
         gn = (k == N - 1) ? gn_k : nan_max(gn, gn_k);
-        // Gains on the free set: column r of K1 and both columns of K2.
-        const T b0[3] = {Qvz1c[0], Qvz2[0][0], Qvz2[0][1]};
-        const T b1[3] = {Qvz1c[1], Qvz2[1][0], Qvz2[1][1]};
-        T g0[3], g1[3];
-        gains2<T, 3>(Qvv[0][0], Qvv[0][1], Qvv[1][1], f0, f1, b0, b1, g0, g1);
-        const T k1c[2] = {g0[0], g1[0]};
-        const T k2m[2][2] = {{g0[1], g0[2]}, {g1[1], g1[2]}};
-        if (owner) {
+        // Gains on the free set, as lanes.cuh's gains2 computes them: column
+        // r of K1, and entry r (row r / 2, column r % 2) of K2, gathered.
+        const T h00 = Qvv[0][0] * f0 * f0 + (T(1) - f0);
+        const T h01 = Qvv[0][1] * f0 * f1;
+        const T h11 = Qvv[1][1] * f1 * f1 + (T(1) - f1);
+        const T deth = guard_tiny(h00 * h11 - h01 * h01);
+        T k1c[2], k2m[2][2];
+        {
+          const T b0 = Qvz1c[0] * f0, b1 = Qvz1c[1] * f1;
+          k1c[0] = -(h11 * b0 - h01 * b1) / deth;
+          k1c[1] = -(-h01 * b0 + h00 * b1) / deth;
+          const T c0 = (r & 1) ? Qvz2[0][1] : Qvz2[0][0];
+          const T c1 = (r & 1) ? Qvz2[1][1] : Qvz2[1][0];
+          const T e0 = c0 * f0, e1 = c1 * f1;
+          const T num = (r < 2) ? h11 * e0 - h01 * e1 : -h01 * e0 + h00 * e1;
+          const T k2r = -num / deth;
+          k2m[0][0] = __shfl_sync(gmask, k2r, 0, G);
+          k2m[0][1] = __shfl_sync(gmask, k2r, 1, G);
+          k2m[1][0] = __shfl_sync(gmask, k2r, 2, G);
+          k2m[1][1] = __shfl_sync(gmask, k2r, 3, G);
           S(L::kK1 + 8 * k + r) = k1c[0];
           S(L::kK1 + 8 * k + 4 + r) = k1c[1];
-          const T k2f[4] = {k2m[0][0], k2m[0][1], k2m[1][0], k2m[1][1]};
-          S(L::kK2 + 4 * k + r) = pick4(k2f, r);
+          S(L::kK2 + 4 * k + r) = k2r;
           if (r < 2) S(L::kD + 2 * k + r) = (r == 0) ? d0 : d1;
         }
 
@@ -584,7 +630,9 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
         T c_new = T(0);
         bool ok = false;
         if (ia < n_alphas) {
-          const T al = c.alpha[ia];
+          T al = c.alpha[0];   // c.alpha[ia], by selects: no local copy
+#pragma unroll
+          for (int i = 1; i < kMaxAlphas; ++i) al = (i == ia) ? c.alpha[i] : al;
           T xt[4] = {x0[0], x0[1], x0[2], x0[3]}, ut[2] = {up0[0], up0[1]};
 #pragma unroll 1
           for (int k = 0; k < N; ++k) {
@@ -622,8 +670,7 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
           c_new = c_new + track(xt, N);
           ok = c_new < cost - T(1e-12);
         }
-        const unsigned hit = (__ballot_sync(gmask, ok) >> gfirst)
-                             & ((G == 32) ? 0xffffffffu : ((1u << G) - 1u));
+        const unsigned hit = (__ballot_sync(gmask, ok) >> gfirst) & ((1u << G) - 1u);
         if (hit != 0u) {
           const int win = __ffs(hit) - 1;
           accepted = true;
@@ -651,7 +698,7 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
 #pragma unroll
       for (int i = 1; i < 4; ++i) cm = nan_max(cm, nan_max(C[i], T(0)));
       viol = nan_max(viol, cm);
-      if (owner) {
+      {
         T& lam = S(L::kLam + 4 * k + r);
         lam = nan_max(T(0), lam + mu * pick4(C, r));
       }
@@ -690,15 +737,15 @@ rmpc_solve_kernel(const T* __restrict__ th_in, const T* __restrict__ ref_in,
 }
 
 // Launch geometry of one instance: lanes and dynamic shared bytes per block.
-template <typename T, int N, int G>
+template <typename T, int N>
 struct Instance {
   static constexpr int kLanes = kThreads / G;
-  static constexpr size_t kShared = sizeof(T) * kLanes * Layout<N, G>::kPerLane;
+  static constexpr size_t kShared = sizeof(T) * kLanes * Layout<N>::kPerLane;
 
   // Raise the dynamic shared limit above the default 48 KB, once.
   static cudaError_t prepare() {
     static cudaError_t err = cudaFuncSetAttribute(
-        rmpc_solve_kernel<T, N, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        rmpc_solve_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kShared));
     return err;
   }
@@ -710,7 +757,7 @@ struct Instance {
     const cudaError_t err = prepare();
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((B + kLanes - 1) / kLanes);
-    rmpc_solve_kernel<T, N, G><<<grid, kThreads, kShared, s>>>(
+    rmpc_solve_kernel<T, N><<<grid, kThreads, kShared, s>>>(
         th, ref, w, z0, V0, V, cost, viol, gnorm, B, n_iters, n_alphas,
         al_rounds, c);
     return static_cast<int>(cudaGetLastError());
@@ -723,7 +770,7 @@ struct Instance {
     *lanes = kLanes;
     *shared = static_cast<int>(kShared);
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, rmpc_solve_kernel<T, N, G>, kThreads, kShared);
+        blocks_per_sm, rmpc_solve_kernel<T, N>, kThreads, kShared);
     return static_cast<int>(err);
   }
 };
@@ -754,17 +801,10 @@ int launch(const T* th, const T* ref, const T* w, const T* z0, const T* V0,
   for (int i = 0; i < kMaxAlphas; ++i)
     c.alpha[i] = static_cast<T>(std::pow(0.6, i));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (g_group == 8) {
-    if (N == 6)
-      return Instance<T, 6, 8>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
-                                    B, n_iters, n_alphas, al_rounds, c, s);
-    return Instance<T, 20, 8>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
-                                   B, n_iters, n_alphas, al_rounds, c, s);
-  }
   if (N == 6)
-    return Instance<T, 6, kGroup>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
+    return Instance<T, 6>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
                                        B, n_iters, n_alphas, al_rounds, c, s);
-  return Instance<T, 20, kGroup>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
+  return Instance<T, 20>::run(th, ref, w, z0, V0, V, cost, viol, gnorm,
                                       B, n_iters, n_alphas, al_rounds, c, s);
 }
 
@@ -804,25 +844,11 @@ int rmpc_solve_f64(const double* th, const double* ref, const double* w,
 int rmpc_solve_geometry(int N, int itemsize, int* threads, int* lanes,
                         int* shared, int* blocks_per_sm) {
   if ((N != 6 && N != 20) || (itemsize != 4 && itemsize != 8)) return kBadShape;
-  if (g_group == 8) {
-    if (itemsize == 4)
-      return N == 6 ? Instance<float, 6, 8>::geometry(threads, lanes, shared, blocks_per_sm)
-                    : Instance<float, 20, 8>::geometry(threads, lanes, shared, blocks_per_sm);
-    return N == 6 ? Instance<double, 6, 8>::geometry(threads, lanes, shared, blocks_per_sm)
-                  : Instance<double, 20, 8>::geometry(threads, lanes, shared, blocks_per_sm);
-  }
   if (itemsize == 4)
-    return N == 6 ? Instance<float, 6, kGroup>::geometry(threads, lanes, shared, blocks_per_sm)
-                  : Instance<float, 20, kGroup>::geometry(threads, lanes, shared, blocks_per_sm);
-  return N == 6 ? Instance<double, 6, kGroup>::geometry(threads, lanes, shared, blocks_per_sm)
-                : Instance<double, 20, kGroup>::geometry(threads, lanes, shared, blocks_per_sm);
-}
-
-// Selects the threads per lane (4 or 8) of the calls that follow.
-int rmpc_solve_set_group(int G) {
-  if (G != 4 && G != 8) return kBadShape;
-  g_group = G;
-  return 0;
+    return N == 6 ? Instance<float, 6>::geometry(threads, lanes, shared, blocks_per_sm)
+                  : Instance<float, 20>::geometry(threads, lanes, shared, blocks_per_sm);
+  return N == 6 ? Instance<double, 6>::geometry(threads, lanes, shared, blocks_per_sm)
+                : Instance<double, 20>::geometry(threads, lanes, shared, blocks_per_sm);
 }
 
 }  // extern "C"

@@ -122,8 +122,6 @@ def library() -> ctypes.CDLL:
     lib.rmpc_solve_geometry.argtypes = (
         [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4)
     lib.rmpc_solve_geometry.restype = ctypes.c_int
-    lib.rmpc_solve_set_group.argtypes = [ctypes.c_int]
-    lib.rmpc_solve_set_group.restype = ctypes.c_int
     lib.dart_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dart_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -371,11 +371,6 @@ def launch_geometry(N: int, dtype: torch.dtype) -> dict:
                     (v.value for v in vals)))
 
 
-def set_group(G: int) -> None:
-    """Threads per lane (4 or 8) of the CUDA launches that follow."""
-    if _build.library().rmpc_solve_set_group(G) != 0:
-        raise ValueError(f"rmpc_solve runs 4 or 8 threads per lane, not {G}")
-
 
 # Per-lane operation counts of the solve (FLOPs; tanh, sin and cos apart
 # as transcendentals), over the function's structural non-zeros. The

@@ -184,6 +184,40 @@ def test_trial_count_and_work():
     assert nbytes == ins + outs
 
 
+def test_work_counts_the_structural_nonzeros():
+    """`work` counts the products over the model's structural non-zeros:
+    they are exactly those of `rmpc_jac`'s A (with its two unit entries)
+    and B at random states, and the RK4 step's (Ad, Bd) come out dense, as
+    the mask propagation finds. The recount is below the dense algebra as
+    written (2224 FLOPs per backward stage, ~950 of them the RK4 chain)."""
+    rng = np.random.default_rng(6)
+    L = 64
+    x = torch.from_numpy(rng.normal(size=(L, 4)) * 0.1)
+    u = torch.from_numpy(rng.uniform(-0.4, 0.4, (L, 2)))
+    p = tdyn.RMPCParams(
+        theta=torch.from_numpy(rng.normal(size=(L, 14)) * 0.3),
+        g=torch.full((L,), -9.81, dtype=torch.float64),
+        v_eps=torch.full((L,), 0.1, dtype=torch.float64))
+    A, Bm = tdyn.rmpc_jac(x, u, p)
+    Ad, Bd = tdyn.rk4_jac(tdyn.rmpc_dynamics, tdyn.rmpc_jac, x, u, p, DT)
+    A_nz = trs._mask((4, 4), trs.A_NZ)
+    B_nz = trs._mask((4, 2), trs.B_NZ)
+    Ad_nz, Bd_nz, jac = trs._rk4_jac_counts()
+    for got, want in ((A, A_nz), (Bm, B_nz), (Ad, Ad_nz), (Bd, Bd_nz)):
+        np.testing.assert_array_equal((got != 0).numpy(),
+                                      want.expand_as(got).numpy())
+    unit = trs._mask((4, 4), trs.A_UNIT)
+    assert bool((A[:, unit] == 1).all())
+    assert int(A_nz.sum()) == 10 and int(B_nz.sum()) == 2
+    assert int(Ad_nz.sum()) == 16 and int(Bd_nz.sum()) == 8
+    assert jac < 950 // 2
+    back = trs._stage_counts(N)
+    assert back < N * 2224
+    full, _ = trs.flops_per_solve(N, KW["n_iters"], KW["n_alphas"],
+                                  KW["al_rounds"])
+    assert full > KW["al_rounds"] * KW["n_iters"] * back
+
+
 def test_wrapper_rejects_bad_inputs():
     args = [torch.from_numpy(a) for a in _problem(5)]
     bad = list(args)
