@@ -14,8 +14,11 @@ Phases, each of which raises on failure (so the script exits non-zero):
    B=4096, nz=6 (N=15, 20) and nz=10 (N=20), float64 and float32, and a
    tight box whose steps must stay inside it;
 5. rmpc: the RMPC whole-solve kernel against its plain version at B=4096,
-   N=20, 6 iterations x 4 alphas x 3 AL rounds, float64 and float32, plus
-   one lane with NaN theta that must report NaN alone;
+   N=20, 6 iterations x 4 alphas x 3 AL rounds, on ragged batches (B=4000
+   and B=37), at N=6, and with 6 alphas (two chunks of the kernel's 4
+   threads per lane), float64 and float32; twice the same call must agree
+   bit for bit; one lane with NaN theta among valid lanes must report NaN
+   and leave every other lane as it was;
 6. main: `PMPCBatch` in closed loop with the analytic RK4 plant for 1200
    steps (2.4 s simulated) at B=4096 in float32, gated on finite controls,
    kernel launches and success within 1 cm; then 3 chained warm rounds and
@@ -44,7 +47,9 @@ Phases, each of which raises on failure (so the script exits non-zero):
 12. lmpc-fallback: `LMPCBatch(use_kernel=False)` at B=4000 for a few steps,
    closed-form and autodiff linearisation, on the Riccati kernel at nz=10;
 13. times (printed, not gated): each kernel and its plain version per call
-   (CUDA events), and the closed-loop steps (host clock).
+   (CUDA events), the closed-loop steps (host clock), and `rmpc_solve`'s
+   launch geometry (threads, lanes and shared bytes per block, resident
+   blocks per SM).
 `profile`, run only when named, traces closed-loop steps with
 torch.profiler and prints the device busy time per step and its rows.
 The last three lines are the card, the kernels' JSON record and the device

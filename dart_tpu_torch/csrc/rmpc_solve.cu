@@ -22,23 +22,30 @@
 // i * B + lane, so neighbouring lanes touch neighbouring addresses.
 //
 // What bounds it on this card, and what the design does about it:
-// - It is compute-bound: ~0.9 MFLOP and ~10k tanh/sin/cos per lane at the
-//   production budget (N = 20, 6 iterations x 4 alphas x 3 AL rounds)
-//   against ~0.5 KB of inputs and outputs, and most of it is a chain of
-//   dependent operations through the stages of each backward pass. So the
-//   limit is latency: how many independent chains each SM's four
-//   schedulers can interleave, and how short each chain is.
-// - A lane per group of G = 4 threads (kGroup). B = 4096 lanes are 16384
-//   threads, 512 warps, ~3.9 per SM, one per scheduler (one thread per lane
-//   gave one warp per SM). In the backward pass thread r owns row r of P,
-//   q, W, Qxx11, Qxx12 and the value update, and column r of Ad, Qvz1 and
-//   K1 (the RK4 Jacobian chain dk_s = A_s (I + h dk_{s-1}) runs column by
-//   column with no exchange); the group exchanges Ad, W, q, K1, Qvz1, the
-//   new P and vx with __shfl_sync (68 shuffles per stage). Each thread
-//   computes the cheap replicated parts itself (the 2x2 box QP, the gains'
-//   determinant, Bd, r, the scalars), so every thread of a group holds the
-//   same replicated values bit for bit and branches alike. The chain skips
-//   the continuous A's two unit rows and B's zeros.
+// - It is compute-bound: ~0.76 MFLOP and ~8.6k tanh/sin/cos per lane at the
+//   production budget (N = 20, 6 iterations x 4 alphas x 3 AL rounds,
+//   counted over the model's structural non-zeros by ops/kernels/
+//   rmpc_solve.py::work) against ~0.8 KB of inputs and outputs, and most of
+//   it is a chain of dependent operations through the stages of each
+//   backward pass. With B = 4096 lanes the card holds few warps, so the
+//   limit is the issue and latency of each warp's instruction stream, not
+//   the FP rate: the design cuts the instructions each warp issues per
+//   stage and the dependent chain through it.
+// - A lane per group of G = 4 threads. B = 4096 lanes are 16384 threads,
+//   512 one-warp blocks, ~3.9 warps per SM (one thread per lane gave one
+//   warp per SM). The stages' (Ad, Bd) depend only on the trajectory, so
+//   they come first: thread t computes the RK4 Jacobian chain of stages
+//   t, t + 4, ... (dk_s = A_s (I + h dk_{s-1}), A's two unit rows copied,
+//   B's zeros skipped) into shared memory. In the Riccati recursion thread
+//   r owns row r of P, q, W, Qxx11, Qxx12 and the value update, and column
+//   r of Ad, Qvz1 and K1; the group exchanges W, q, Ad, K1 with Qvz1, the
+//   new P and vx with __shfl_sync (83 shuffles per stage with the box QP's
+//   and K2's). The box QP's nine candidates are spread over the group
+//   (boxqp2_group: three each, the first minimum in boxqp2's order, bit
+//   for bit), and so are the gains' divisions (column r of K1, entry r of
+//   K2). Every thread holds
+//   the replicated values (vx, vu, P, r, the box QP's step) bit for bit, so
+//   the group branches alike.
 // - The line search runs the alphas in parallel: thread a of the group
 //   runs the trial with alpha 0.6^a (in chunks of G, in order, when
 //   n_alphas > G), each into its own slice of shared memory, and the lane
@@ -48,13 +55,15 @@
 //   then copies the winner's slice over X, U, V. Done lanes skip the
 //   search.
 // - The horizon lives in dynamic shared memory, per lane: ref, lam, D, K1,
-//   K2, the current X[1..N], U[1..N], V and G trial trajectories,
-//   30N + 4 + 8GN values (1244 at N = 20: 4976 bytes in float, 9952 in
-//   double). A block is one warp of 32 // G = 8 lanes (39808 bytes in float
-//   at N = 20, 79616 in double, above 48 KB, so launch() raises the
-//   instance's dynamic shared limit once). Element idx of the warp's lane
-//   slot lw sits at idx * 8 + lw: the threads of a warp reading a row,
-//   a broadcast value or their own trial slices hit distinct banks.
+//   K2, the current X[1..N], U[1..N], V, G trial trajectories and the
+//   stages' (Ad, Bd), 55N + 4 + 8GN values (1744 at N = 20: 6976 bytes in
+//   float, 13952 in double). A block is one warp of 8 lanes (55808 bytes in
+//   float at N = 20, 111616 in double, above the default 48 KB, so launch()
+//   raises the instance's dynamic shared limit once): four float blocks
+//   fit an SM, 4224 lanes on 132 SMs, so B = 4096 runs in one wave.
+//   Element idx of the warp's lane slot lw sits at idx * 8 + lw, so the
+//   threads of a warp reading a row, a broadcast value or their own trial
+//   slices hit distinct banks.
 // - The escalation front end (control/mpc.py) reads max(viol) and
 //   max(gnorm) on the host after each round, so every control step syncs.
 //

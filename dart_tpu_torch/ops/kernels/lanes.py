@@ -182,3 +182,34 @@ def _boxqp2_lanes(Quu: torch.Tensor, Qu: torch.Tensor, lo: torch.Tensor,
         best_f0 = torch.where(better, cand_free[i][0], best_f0)
         best_f1 = torch.where(better, cand_free[i][1], best_f1)
     return torch.stack([best_d0, best_d1]), torch.stack([best_f0, best_f1])
+
+
+# Structural operation counts for the kernels' `work()`: boolean masks of
+# the non-zeros a product or sum propagates, and the FLOPs it needs.
+def _mask(shape, nz=()):
+    m = torch.zeros(shape, dtype=torch.bool)
+    for ij in nz:
+        m[ij] = True
+    return m
+
+
+def _nnz(m) -> int:
+    return int(m.sum())
+
+
+def _mmc(a, b, unit=None):
+    """(mask, FLOPs) of the product of two structurally sparse matrices:
+    m non-zero pairs into one entry are m multiplies, less those by the
+    entries of `a` that `unit` marks as exactly 1, and m - 1 adds."""
+    pairs = a.long() @ b.long()
+    mults = pairs - (0 if unit is None else unit.long() @ b.long())
+    return pairs > 0, int((mults + (pairs - 1).clamp(min=0)).sum())
+
+
+def _addc(*ms):
+    """(mask, FLOPs) of a sum of structurally sparse terms."""
+    out, n = ms[0], 0
+    for m in ms[1:]:
+        n += _nnz(out & m)
+        out = out | m
+    return out, n

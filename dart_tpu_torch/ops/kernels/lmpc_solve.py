@@ -29,9 +29,10 @@ import torch
 
 from dart_tpu_torch.models import dynamics as dyn
 from dart_tpu_torch.ops.kernels import _build
-from dart_tpu_torch.ops.kernels.lanes import (_add_diag_vec, _boxqp2_lanes,
-                                              _diag_embed, _gains_lanes, _mm,
-                                              _mT, _mv, _rk4_jac_lanes)
+from dart_tpu_torch.ops.kernels.lanes import (_add_diag_vec, _addc,
+                                              _boxqp2_lanes, _diag_embed,
+                                              _gains_lanes, _mask, _mm, _mmc,
+                                              _mT, _mv, _nnz, _rk4_jac_lanes)
 
 N_INSTANCES = (6, 12, 20)
 MAX_ALPHAS = 16
@@ -298,32 +299,6 @@ _T_BACKWARD = 3 * _T_F8 + 4 * _T_JAC8
 A_NZ = ((0, 1), (1, 0), (1, 1), (1, 7), (2, 3), (3, 2), (3, 3), (3, 5),
         (4, 5), (5, 3), (5, 4), (5, 5), (6, 7), (7, 1), (7, 6), (7, 7))
 B_NZ = ((1, 0), (3, 1))
-
-
-def _mask(shape, nz=()):
-    m = torch.zeros(shape, dtype=torch.bool)
-    for ij in nz:
-        m[ij] = True
-    return m
-
-
-def _nnz(m) -> int:
-    return int(m.sum())
-
-
-def _mmc(a, b):
-    """(mask, FLOPs) of the product of two structurally sparse matrices."""
-    pairs = a.long() @ b.long()
-    return pairs > 0, int((2 * pairs - 1).clamp(min=0).sum())
-
-
-def _addc(*ms):
-    """(mask, FLOPs) of a sum of structurally sparse terms."""
-    out, n = ms[0], 0
-    for m in ms[1:]:
-        n += _nnz(out & m)
-        out = out | m
-    return out, n
 
 
 def _rk4_jac_counts():

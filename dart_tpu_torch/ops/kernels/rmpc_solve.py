@@ -26,9 +26,10 @@ import ctypes
 import torch
 
 from dart_tpu_torch.ops.kernels import _build
-from dart_tpu_torch.ops.kernels.lanes import (_add_diag_vec, _boxqp2_lanes,
-                                              _gains_lanes, _mm, _mT, _mv,
-                                              _rk4_jac_lanes)
+from dart_tpu_torch.ops.kernels.lanes import (_add_diag_vec, _addc,
+                                              _boxqp2_lanes, _gains_lanes,
+                                              _mask, _mm, _mmc, _mT, _mv,
+                                              _nnz, _rk4_jac_lanes)
 
 # Signed gravity of the kernel, like model.opt.gravity[2]; the kernel does
 # not take RMPCParams.g.
@@ -371,7 +372,6 @@ def launch_geometry(N: int, dtype: torch.dtype) -> dict:
                     (v.value for v in vals)))
 
 
-
 # Per-lane operation counts of the solve (FLOPs; tanh, sin and cos apart
 # as transcendentals), over the function's structural non-zeros. The
 # continuous Jacobian A of `models.dynamics.rmpc_jac` has 10 fixed
@@ -399,34 +399,6 @@ A_NZ = ((0, 1), (1, 0), (1, 1), (1, 2), (1, 3), (2, 3), (3, 0), (3, 1),
         (3, 2), (3, 3))
 A_UNIT = ((0, 1), (2, 3))
 B_NZ = ((1, 0), (3, 1))
-
-
-def _mask(shape, nz=()):
-    m = torch.zeros(shape, dtype=torch.bool)
-    for ij in nz:
-        m[ij] = True
-    return m
-
-
-def _nnz(m) -> int:
-    return int(m.sum())
-
-
-def _mmc(a, b, unit=None):
-    """(mask, FLOPs) of the product of two structurally sparse matrices;
-    `unit` marks entries of `a` that are exactly 1."""
-    pairs = a.long() @ b.long()
-    mults = pairs - (0 if unit is None else unit.long() @ b.long())
-    return pairs > 0, int((mults + (pairs - 1).clamp(min=0)).sum())
-
-
-def _addc(*ms):
-    """(mask, FLOPs) of a sum of structurally sparse terms."""
-    out, n = ms[0], 0
-    for m in ms[1:]:
-        n += _nnz(out & m)
-        out = out | m
-    return out, n
 
 
 def _rk4_jac_counts():
