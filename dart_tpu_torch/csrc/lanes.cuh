@@ -350,4 +350,112 @@ __device__ __forceinline__ void boxqp2_group(unsigned mask, int width, int r,
   f1_out = (w % 3 == 0) ? T(1) : T(0);
 }
 
+// ---------------------------------------------------------------------------
+// Block helpers: a lane's algebra split into independent 4-state blocks
+// (the LMPC model's x and y axes), each block held by R threads.
+// ---------------------------------------------------------------------------
+
+// a * b rounded once and never fused into a neighbouring add. A dense
+// kernel's a*b + 0*c is contracted to one FMA whose value is round(a*b);
+// a kernel that skips the structural zero writes mul_rn(a, b) to keep it.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+  return __fmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+#ifdef __CUDA_ARCH__
+  return __dmul_rn(a, b);
+#else
+  return a * b;
+#endif
+}
+
+// full[i][m] = own[i / R][m] of thread i % R of the block's R threads, in
+// each of them (R = 1: a copy). Thread r of the block owns rows r, r + R,
+// ...; `mask` names the block's threads, which start at a multiple of R.
+template <int R, typename T, int M>
+__device__ __forceinline__ void gather_rows(unsigned mask,
+                                            const T (&own)[4 / R][M],
+                                            T (&full)[4][M]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      full[i][m] = (R == 1) ? own[i][m] : __shfl_sync(mask, own[i / R][m], i % R, R);
+}
+
+// Exact (Ad, Bd) of one RK4 step of a 4-state, 1-input block by the chain
+// rule of rk4_jac, for a continuous A whose rows 0 and 2 are the unit rows
+// e_1 and e_3 (positions driven by velocities) and a B that is bg in row 1
+// only: dk_1 = A_1, dk_s = A_s (I + h dk_{s-1}), dku_s = A_s (h dku_{s-1})
+// + B, S = dk_1 + 2 dk_2 + 2 dk_3 + dk_4, Ad = I + dt/6 Sx, Bd = dt/6 Su.
+// fj(x, xd, a1, a3) gives the model's xdot and rows 1 and 3 of A at x;
+// jac(x, a1, a3) the rows alone. Each entry sums its products in rk4_jac's
+// order with the unit rows' zeros skipped, which changes no value.
+template <typename T, typename FJ, typename J>
+__device__ __forceinline__ void rk4_jac4(FJ fj, J jac, const T (&x)[4], T bg,
+                                         const RK4Consts<T>& c,
+                                         T (&Ad)[4][4], T (&Bd)[4]) {
+  T a1[4][4], a3[4][4], kd[4], xs[4];
+  fj(x, kd, a1[0], a3[0]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xs[i] = x[i] + c.half_dt * kd[i];
+  fj(xs, kd, a1[1], a3[1]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xs[i] = x[i] + c.half_dt * kd[i];
+  fj(xs, kd, a1[2], a3[2]);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) xs[i] = x[i] + c.dt * kd[i];
+  jac(xs, a1[3], a3[3]);
+
+  T dk[4][4], Sx[4][4];   // [column][row]
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    dk[j][0] = (j == 1) ? T(1) : T(0);
+    dk[j][1] = a1[0][j];
+    dk[j][2] = (j == 3) ? T(1) : T(0);
+    dk[j][3] = a3[0][j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Sx[j][i] = dk[j][i];
+  }
+  T du[4] = {T(0), bg, T(0), T(0)};
+  T Su[4] = {T(0), bg, T(0), T(0)};
+#pragma unroll
+  for (int s = 1; s < 4; ++s) {
+    const T h = (s == 3) ? c.dt : c.half_dt;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      T E[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) E[i] = (i == j) ? h * dk[j][i] + T(1) : h * dk[j][i];
+      dk[j][0] = E[1];
+      dk[j][1] = a1[s][0] * E[0] + a1[s][1] * E[1] + a1[s][2] * E[2] + a1[s][3] * E[3];
+      dk[j][2] = E[3];
+      dk[j][3] = a3[s][0] * E[0] + a3[s][1] * E[1] + a3[s][2] * E[2] + a3[s][3] * E[3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        Sx[j][i] = (s < 3) ? Sx[j][i] + T(2) * dk[j][i] : Sx[j][i] + dk[j][i];
+    }
+    T sb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sb[i] = h * du[i];
+    du[0] = sb[1];
+    du[1] = a1[s][0] * sb[0] + a1[s][1] * sb[1] + a1[s][2] * sb[2] + a1[s][3] * sb[3] + bg;
+    du[2] = sb[3];
+    du[3] = a3[s][0] * sb[0] + a3[s][1] * sb[1] + a3[s][2] * sb[2] + a3[s][3] * sb[3];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) Su[i] = (s < 3) ? Su[i] + T(2) * du[i] : Su[i] + du[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      Ad[i][j] = (i == j) ? c.dt6 * Sx[j][i] + T(1) : c.dt6 * Sx[j][i];
+    Bd[i] = c.dt6 * Su[i];
+  }
+}
+
 }  // namespace dart

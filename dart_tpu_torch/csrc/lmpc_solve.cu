@@ -1,5 +1,5 @@
-// Whole LMPC box-DDP solve, one thread per scenario lane, for Hopper
-// (sm_90a).
+// Whole LMPC box-DDP solve, one scenario lane per group of G = 2R threads
+// split along the model's two decoupled axes, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dart_tpu/ops/pallas/lmpc_solve.py::_lmpc_kernel
 // (lmpc_solve_pallas) and computes what it computes, step for step: the
@@ -12,47 +12,76 @@
 // done masks over a fixed number of iterations. Its semantics are the TPU
 // kernel's, not ilqr.solve_batch's: the wrapper clips V0 to +-u_bound before
 // the launch, the cost starts as the clipped V0's rollout cost, a trial is
-// accepted on c_new < cost - 1e-12 against the iteration's starting cost, a
-// lane that accepts no alpha is done, gnorm is the max |d| of the last
+// accepted on c_new < cost - 1e-12 against the iteration's starting cost,
+// the smallest accepted alpha index wins, a lane that accepts no alpha is
+// done and a done lane never moves, gnorm is the max |d| of the last
 // backward pass (taken before its line search), the Quu jitter is
 // 2 (Ru + Rdu) + 1e-8, and gravity is the constant +9.81 (RMPC's kernel
 // uses -9.81). d|v|/dv is sign(v), 0 at v = 0, as in jnp.sign. The plain
 // PyTorch version is dart_tpu_torch/ops/kernels/lmpc_solve.py::_solve_lanes.
 //
-// Layout: every array is batch-last, element (i, lane) at i * B + lane, so
-// neighbouring threads touch neighbouring addresses and loads coalesce.
+// Layout: every global array is batch-last, element (i, lane) at
+// i * B + lane, so neighbouring lanes touch neighbouring addresses.
 //
 // What bounds it on this card, and what the design does about it:
-// - It is compute-bound: ~0.25 MFLOP and ~5k exp/tanh/sin/cos per lane at
-//   N = 12 and 2 iterations (ops/kernels/lmpc_solve.py::work), against
-//   ~0.5 KB of float32 inputs and outputs. Each thread runs one long chain of
-//   dependent FP operations, so latency, not the FP rate, is the limit
-//   until enough lanes are in flight.
-// - The batch is small against the card: B = 4096 lanes are 4096 threads.
-//   Blocks of 32 threads give 128 blocks, one warp on all but four of the
-//   132 SMs (the RMPC kernel measured 32 ahead of 128 at this B).
-// - Per-lane state is far beyond the register file: X, V, D, K1, K2 and the
-//   line search's trial X and V come to ~860 values at N = 20, and the RK4
-//   Jacobian's 8x8 temporaries to ~400 more, against 255 registers per
-//   thread. The horizon arrays live in local memory (cached in L1/L2); one
-//   stage's algebra stays in registers as far as ptxas manages. A faster
-//   version could split a lane's 8x8 products over several threads or
-//   exploit the Jacobian's sparsity (the dense products are ~60% of the
-//   FLOPs).
+// - It is compute-bound: ~86 kFLOP and ~5k exp/tanh/sin/cos per lane at
+//   N = 12 and 2 iterations, counted over the model's structural non-zeros
+//   (ops/kernels/lmpc_solve.py::work), against ~0.5 KB of float32 inputs
+//   and outputs, and most of it is a chain of dependent operations through
+//   the stages of each backward pass and trial rollout. B = 4096 lanes fill
+//   few warps, so the limit is each warp's instruction stream and its
+//   latency, not the FP rate.
+// - The model's two axes never meet: x = {px, vx, th_y, om_y} (states 0, 1,
+//   6, 7) is driven by the tilt u0 alone and y = {py, vy, th_x, om_x}
+//   (states 2, 3, 4, 5) by u1. Ad, Bd, P, q, r and the gains are two
+//   4-state blocks, so the lane's backward pass is two independent
+//   partitioned Riccati recursions over [x_a(4), u_prev_a] (Ad_a 4x4, Bd_a
+//   4, P_a 4x4, q_a 4, r_a, K1_a 4, K2_a, d_a), and a trial's control law
+//   for one axis reads that axis's state alone. A group of G = 2R threads
+//   holds a lane: threads 0..R-1 the x axis, R..2R-1 the y axis. The axes
+//   meet at three points only: the 2x2 box QP (gathered; its off-diagonal
+//   is an exact 0, and boxqp2's first minimum is kept), the stage cost
+//   (track sums i = 0..7 in order, interleaving the axes, so each thread
+//   gets its partner's errors and controls by shuffle and sums them in the
+//   plain order), and the line search's acceptance and done mask.
+// - The stages' (Ad_a, Bd_a) depend on the trajectory only, so they come
+//   first: thread r of an axis runs the RK4 Jacobian chain of stages r,
+//   r + R, ... (lanes.cuh::rk4_jac4: the unit rows copied, the model and
+//   its Jacobian rows sharing their exp and tanh) into shared memory. In
+//   the recursion thread r of an axis owns rows r, r + R, ... of Qx, Qxx,
+//   Qux1, K1, the new P, q and vx, and the axis exchanges them with
+//   __shfl_sync (lanes.cuh::gather_rows); the scalars (Qu, Quu, the box
+//   QP, K2, vu, r) are held alike by every thread of the axis.
+// - The line search runs the alphas in parallel: thread (axis, r) rolls
+//   out its axis's trial under alpha 0.6^(a0 + r) for chunks a0 = 0, R, ...
+//   in order, the two axis threads of an alpha trading their stage terms,
+//   and the lane takes the smallest index whose cost passes the test (a
+//   ballot over the group). Every trial starts from the same X, V, D, K,
+//   so this is the TPU kernel's `~accepted & (c_new < cost - 1e-12)`
+//   exactly. Done lanes skip the search.
+// - The horizon lives in dynamic shared memory, per lane and axis: X[1..N],
+//   V, D, K1_a, K2_a, the stages' (Ad_a, Bd_a) and R trial trajectories,
+//   (32 + 5R) N values. A block is one warp of 32 / G lanes. Element idx of
+//   the warp's lane-axis slot sits at idx * 32 / R + 2 lw + axis, so the
+//   threads of a warp hit distinct banks (rows r of one axis 8 banks apart
+//   when R = 4). launch() raises the instance's dynamic shared limit once.
 // - The escalation front end (control/mpc.py) reads max(gnorm) on the host
 //   after each round, so every control step syncs.
 //
-// Two shortcuts that change no result: a lane that accepts an alpha skips
-// the remaining trials (the TPU kernel computes and discards them), and a
-// done lane skips the line search (its trials are never accepted).
+// One launch per call, no atomics, no fallback; a group whose lane is past
+// the batch's end returns at once (the others use group masks only).
 //
 // Numerics: precise exp/tanh/sin/cos and IEEE division (no
 // --use_fast_math). Constants the TPU kernel folds in python double (dt/2,
-// dt/6, 0.6^i) are folded on the host in double and rounded once. nvcc's
-// default FMA contraction is left on, so float32 results differ from the
-// plain version by a few ulps per operation; chip_smoke.py states the
-// tolerance. Every max, clip and sign propagates NaN, so a lane with NaN
-// inputs reports a NaN cost and gnorm and leaves the other lanes alone.
+// dt/6, 0.6^i) are folded on the host in double and rounded once. Each
+// element keeps the dense algebra's order of operations with the
+// structural zeros skipped, which adds or multiplies nothing for finite
+// values (a product whose dense partner term is an exact 0 is rounded on
+// its own, lanes.cuh::mul_rn); nvcc's default FMA contraction is left on,
+// so float32 results differ from the plain version by a few ulps per
+// operation; chip_smoke.py states the tolerance. Every max, clip and sign
+// propagates NaN, so a lane with NaN inputs reports a NaN cost and gnorm
+// and leaves the other lanes alone.
 
 #include <cuda_runtime.h>
 
@@ -64,7 +93,8 @@ namespace {
 
 using namespace dart;
 
-constexpr int kThreads = 32;
+constexpr int kWarp = 32;
+constexpr int kThreads = 32;   // threads per block: one warp
 
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
@@ -95,17 +125,52 @@ __device__ __forceinline__ T strib(T v, const Fric<T>& f) {
   return dtanh(v / f.eps) * stc + f.b * v;
 }
 
-// d/dv of strib, with d|v|/dv = sign(v).
+// strib and its slope d/dv (d|v|/dv = sign(v)) from one exp and one tanh.
 template <typename T>
-__device__ __forceinline__ T dstrib(T v, const Fric<T>& f) {
+__device__ __forceinline__ void strib_d(T v, const Fric<T>& f, T& s, T& ds) {
   const T vs = f.v_s + T(1e-12);
   const T ex = dexp(-dabs(v) / vs);
   const T stc = f.f_c + (f.f_s - f.f_c) * ex;
   const T t = dtanh(v / f.eps);
-  return (T(1) - t * t) / f.eps * stc + t * (f.f_s - f.f_c) * ex * (-nan_sign(v) / vs) + f.b;
+  s = t * stc + f.b * v;
+  ds = (T(1) - t * t) / f.eps * stc + t * (f.f_s - f.f_c) * ex * (-nan_sign(v) / vs) + f.b;
 }
 
-template <typename T, int N>
+// One axis of the model over its local state [p, v, th, om] and tilt u:
+// p' = v, v' = (m g sin u - c v - k p - F(v) - F(v + sr om)) / m,
+// th' = om, om' = (-r F(v + sr om) - T(om) - c_rot om - m g h sin th) / I,
+// with (sr, nr) = (-r_x, r_x) on the x axis and (r_y, -r_y) on the y axis.
+template <typename T>
+struct Axis {
+  T m, c, k, r, sr, nr, c_rot, h, inertia;
+  Fric<T> ff, tn;
+};
+
+// Global state index of local state s of axis a: x {0, 1, 6, 7}, y {2..5}.
+__device__ __forceinline__ int gidx(int a, int s) {
+  return a == 0 ? (s < 2 ? s : s + 4) : s + 2;
+}
+
+// A lane-axis's shared-memory arrays, as element offsets. X[1..N] (4N) and
+// V (N) form the trajectory the line search replaces; X[0] stays in
+// registers. Stage k's Ad_a (row-major) and Bd_a sit at kJac + 21 k (21,
+// not 20: the four threads of an axis storing four stages hit four banks).
+// Element e of trial slot j sits at kTrial + e * R + j.
+template <int N, int R>
+struct Layout {
+  static constexpr int kX = 0;
+  static constexpr int kV = 4 * N;
+  static constexpr int kTraj = 5 * N;
+  static constexpr int kD = 5 * N;
+  static constexpr int kK1 = 6 * N;
+  static constexpr int kK2 = 10 * N;
+  static constexpr int kJac = 11 * N;
+  static constexpr int kJacStride = 21;
+  static constexpr int kTrial = kJac + kJacStride * N;
+  static constexpr int kPerAxis = kTrial + R * kTraj;
+};
+
+template <typename T, int N, int R>
 __global__ void __launch_bounds__(kThreads)
 lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
                   const T* __restrict__ R_in, const T* __restrict__ Qt_in,
@@ -113,380 +178,449 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
                   const T* __restrict__ V0, T* __restrict__ V_out,
                   T* __restrict__ cost_out, T* __restrict__ gnorm_out, int B,
                   int n_iters, int n_alphas, const Consts<T> c) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
+  static_assert(R == 1 || R == 4, "R threads per axis: 1 or 4");
+  constexpr int G = 2 * R;          // threads per lane
+  constexpr int LW = kWarp / G;     // lanes per warp (= per block)
+  constexpr int SL = 2 * LW;        // lane-axis slots per warp
+  constexpr int NR = 4 / R;         // rows a thread owns
+  using L = Layout<N, R>;
+  const int tid = threadIdx.x;
+  const int t = tid % G;
+  const int ax = t / R;                      // 0: x axis, 1: y axis
+  const int r = (R == 1) ? 0 : t % R;        // rows r, r + R, ...; alpha r
+  const int lw = tid / G;
+  const int lane = blockIdx.x * LW + lw;
+  if (lane >= B) return;                     // the whole group leaves together
+  const int gfirst = lw * G;
+  const unsigned gmask = ((1u << G) - 1u) << gfirst;
+  const unsigned hmask = ((1u << R) - 1u) << (gfirst + ax * R);
+  const unsigned pmask = (1u << (gfirst + r)) | (1u << (gfirst + R + r));
+  auto row = [&](int ii) { return r + R * ii; };
+  // The partner: the other axis's thread with the same r (the same alpha).
+  auto xchg = [&](T v) { return __shfl_sync(pmask, v, t ^ R, G); };
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const base = reinterpret_cast<T*>(smem_raw) + 2 * lw + ax;
+  auto S = [&](int idx) -> T& { return base[idx * SL]; };
+
   const size_t sB = static_cast<size_t>(B);
   auto at = [&](const T* p, int i) { return p[static_cast<size_t>(i) * sB + lane]; };
-  const T G = T(9.81);
+  const T Gc = T(9.81);
 
-  // ---- squash the positivity-constrained parameters once ----
-  auto raw = [&](int i) { return at(p_in, i); };
+  // ---- this axis's parameters, squashed once ----
   auto sq = [&](int i) { return dabs(at(p_in, i)) + T(1e-6); };
-  const T m_x = sq(0), m_y = sq(1), c_x = sq(2), c_y = sq(3);
-  const T k_x = sq(4), k_y = sq(5);
-  const Fric<T> fx{raw(6), raw(7), raw(8), sq(9), sq(10)};
-  const Fric<T> fy{raw(11), raw(12), raw(13), sq(14), sq(15)};
-  const T r_x = sq(18), r_y = sq(19), c_rot_x = sq(20), c_rot_y = sq(21);
-  const Fric<T> frx{raw(22), raw(23), raw(24), sq(25), sq(26)};
-  const Fric<T> fry{raw(27), raw(28), raw(29), sq(30), sq(31)};
-  const T h_com_x = sq(32), h_com_y = sq(33);
-  const T ix = sq(16) + T(1e-12), iy = sq(17) + T(1e-12);
+  auto fric = [&](int b) {
+    return Fric<T>{at(p_in, b), at(p_in, b + 1), at(p_in, b + 2), sq(b + 3), sq(b + 4)};
+  };
+  Axis<T> P;
+  P.m = sq(ax);
+  P.c = sq(2 + ax);
+  P.k = sq(4 + ax);
+  P.ff = fric(6 + 5 * ax);
+  P.r = sq(18 + ax);
+  P.sr = (ax == 0) ? -P.r : P.r;
+  P.nr = -P.sr;
+  P.c_rot = sq(21 - ax);
+  P.tn = fric(27 - 5 * ax);
+  P.h = sq(33 - ax);
+  P.inertia = sq(17 - ax) + T(1e-12);
 
-  T Q[8], Qt[8], tg[8], x0[8], up0[2], Ru[2], Rdu[2];
+  T Q8[8], Qt8[8], Qa[4], Qta[4], tga[4], x0a[4];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    Q[i] = at(Q_in, i);
-    Qt[i] = at(Qt_in, i);
-    tg[i] = at(t_in, i);
-    x0[i] = at(z0_in, i);
+    Q8[i] = at(Q_in, i);
+    Qt8[i] = at(Qt_in, i);
   }
-  up0[0] = at(z0_in, 8);
-  up0[1] = at(z0_in, 9);
-  Ru[0] = at(R_in, 0);
-  Ru[1] = at(R_in, 1);
-  Rdu[0] = at(R_in, 2);
-  Rdu[1] = at(R_in, 3);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    Qa[s] = (ax == 0) ? Q8[gidx(0, s)] : Q8[gidx(1, s)];
+    Qta[s] = (ax == 0) ? Qt8[gidx(0, s)] : Qt8[gidx(1, s)];
+    tga[s] = at(t_in, gidx(ax, s));
+    x0a[s] = at(z0_in, gidx(ax, s));
+  }
+  const T up0a = at(z0_in, 8 + ax);
+  const T Ru[2] = {at(R_in, 0), at(R_in, 1)};
+  const T Rdu[2] = {at(R_in, 2), at(R_in, 3)};
+  const T Rua = (ax == 0) ? Ru[0] : Ru[1], Rdua = (ax == 0) ? Rdu[0] : Rdu[1];
 
-  T X[N + 1][8], V[N][2], D[N][2], K1[N][2][8], K2[N][2][2];
-  T Xt[N + 1][8], Vt[N][2];
 #pragma unroll 1
-  for (int k = 0; k < N; ++k) {
-    V[k][0] = at(V0, 2 * k);
-    V[k][1] = at(V0, 2 * k + 1);
-  }
+  for (int k = r; k < N; k += R) S(L::kV + k) = at(V0, 2 * k + ax);
+  __syncwarp(hmask);
 
-  // xdot of the model (f8) and its continuous-time Jacobians (jac8).
-  auto f8 = [&](const T (&x)[8], const T (&v)[2], T (&xd)[8]) {
-    const T px = x[0], vx = x[1], py = x[2], vy = x[3];
-    const T th_x = x[4], om_x = x[5], th_y = x[6], om_y = x[7];
-    const T g_x = m_x * G * dsin(v[0]);
-    const T g_y = m_y * G * dsin(v[1]);
-    const T ff_x = strib(vx, fx), ff_y = strib(vy, fy);
-    const T f_roll_x = strib(vx - r_x * om_y, fx);
-    const T f_roll_y = strib(vy + r_y * om_x, fy);
-    const T t_noslip_x = strib(om_x, frx), t_noslip_y = strib(om_y, fry);
-    const T tau_x = -r_y * f_roll_y - t_noslip_x - c_rot_x * om_x
-                    - m_y * G * h_com_x * dsin(th_x);
-    const T tau_y = -r_x * f_roll_x - t_noslip_y - c_rot_y * om_y
-                    - m_x * G * h_com_y * dsin(th_y);
-    xd[0] = vx;
-    xd[1] = (g_x - c_x * vx - k_x * px - ff_x - f_roll_x) / m_x;
-    xd[2] = vy;
-    xd[3] = (g_y - c_y * vy - k_y * py - ff_y - f_roll_y) / m_y;
-    xd[4] = om_x;
-    xd[5] = tau_x / ix;
-    xd[6] = om_y;
-    xd[7] = tau_y / iy;
+  auto Xk = [&](int k, T (&x)[4]) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) x[s] = (k == 0) ? x0a[s] : S(L::kX + 4 * (k - 1) + s);
   };
-  auto jac8 = [&](const T (&x)[8], const T (&v)[2], T (&A)[8][8], T (&Bj)[8][2]) {
-    const T vx = x[1], vy = x[3];
-    const T th_x = x[4], om_x = x[5], th_y = x[6], om_y = x[7];
-    const T Dff_x = dstrib(vx, fx), Dff_y = dstrib(vy, fy);
-    const T Dfr_x = dstrib(vx - r_x * om_y, fx);
-    const T Dfr_y = dstrib(vy + r_y * om_x, fy);
-    const T Dtn_x = dstrib(om_x, frx), Dtn_y = dstrib(om_y, fry);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) A[i][j] = T(0);
-      Bj[i][0] = Bj[i][1] = T(0);
-    }
-    A[0][1] = T(1);
-    A[1][0] = -k_x / m_x;
-    A[1][1] = (-c_x - Dff_x - Dfr_x) / m_x;
-    A[1][7] = r_x * Dfr_x / m_x;
-    A[2][3] = T(1);
-    A[3][2] = -k_y / m_y;
-    A[3][3] = (-c_y - Dff_y - Dfr_y) / m_y;
-    A[3][5] = -r_y * Dfr_y / m_y;
-    A[4][5] = T(1);
-    A[5][3] = -r_y * Dfr_y / ix;
-    A[5][4] = -m_y * G * h_com_x * dcos(th_x) / ix;
-    A[5][5] = (-r_y * r_y * Dfr_y - Dtn_x - c_rot_x) / ix;
-    A[6][7] = T(1);
-    A[7][1] = -r_x * Dfr_x / iy;
-    A[7][6] = -m_x * G * h_com_y * dcos(th_y) / iy;
-    A[7][7] = (r_x * r_x * Dfr_x - Dtn_y - c_rot_y) / iy;
-    Bj[1][0] = G * dcos(v[0]);
-    Bj[3][1] = G * dcos(v[1]);
+
+  // xdot of this axis (gs = m g sin u).
+  auto model = [&](const T (&x)[4], T gs, T (&xd)[4]) {
+    const T ff = strib(x[1], P.ff);
+    const T fr = strib(x[1] + P.sr * x[3], P.ff);
+    const T tn = strib(x[3], P.tn);
+    const T tau = -P.r * fr - tn - P.c_rot * x[3] - P.m * Gc * P.h * dsin(x[2]);
+    xd[0] = x[1];
+    xd[1] = (gs - P.c * x[1] - P.k * x[0] - ff - fr) / P.m;
+    xd[2] = x[3];
+    xd[3] = tau / P.inertia;
   };
-  auto rk4 = [&](const T (&x)[8], const T (&v)[2], T (&xn)[8]) {
-    T k1[8], k2[8], k3[8], k4[8], xt[8];
-    f8(x, v, k1);
+  // Rows 1 and 3 of this axis's continuous A from the friction slopes.
+  auto arows = [&](const T (&x)[4], T Dff, T Dfr, T Dtn, T (&a1)[4], T (&a3)[4]) {
+    a1[0] = -P.k / P.m;
+    a1[1] = (-P.c - Dff - Dfr) / P.m;
+    a1[2] = T(0);
+    a1[3] = P.nr * Dfr / P.m;
+    a3[0] = T(0);
+    a3[1] = -P.r * Dfr / P.inertia;
+    a3[2] = -P.m * Gc * P.h * dcos(x[2]) / P.inertia;
+    a3[3] = (P.nr * P.r * Dfr - Dtn - P.c_rot) / P.inertia;
+  };
+  auto rk4 = [&](const T (&x)[4], T u, T (&xn)[4]) {
+    const T gs = P.m * Gc * dsin(u);
+    T k1[4], k2[4], k3[4], k4[4], xt[4];
+    model(x, gs, k1);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) xt[i] = x[i] + c.rk.half_dt * k1[i];
-    f8(xt, v, k2);
+    for (int i = 0; i < 4; ++i) xt[i] = x[i] + c.rk.half_dt * k1[i];
+    model(xt, gs, k2);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) xt[i] = x[i] + c.rk.half_dt * k2[i];
-    f8(xt, v, k3);
+    for (int i = 0; i < 4; ++i) xt[i] = x[i] + c.rk.half_dt * k2[i];
+    model(xt, gs, k3);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) xt[i] = x[i] + c.rk.dt * k3[i];
-    f8(xt, v, k4);
+    for (int i = 0; i < 4; ++i) xt[i] = x[i] + c.rk.dt * k3[i];
+    model(xt, gs, k4);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < 4; ++i)
       xn[i] = x[i] + c.rk.dt6 * (k1[i] + T(2) * k2[i] + T(2) * k3[i] + k4[i]);
   };
-  // sum_i W[i] e_i^2, e = x - target, summed in the order i = 0..7.
-  auto track = [&](const T (&x)[8], const T (&W)[8]) {
+  // The lane's errors e = x - target in the global order i = 0..7, this
+  // axis's from e and the partner's by shuffle.
+  auto full8 = [&](const T (&e)[4], T (&e8)[8]) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const T o = xchg(e[s]);
+      e8[gidx(0, s)] = (ax == 0) ? e[s] : o;
+      e8[gidx(1, s)] = (ax == 1) ? e[s] : o;
+    }
+  };
+  // sum_i W[i] e_i^2 in the order i = 0..7.
+  auto track = [&](const T (&e8)[8], const T (&W)[8]) {
     T s = T(0);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const T e = x[i] - tg[i];
-      s = (i == 0) ? W[0] * e * e : s + W[i] * e * e;
-    }
+    for (int i = 0; i < 8; ++i) s = (i == 0) ? W[0] * e8[0] * e8[0] : s + W[i] * e8[i] * e8[i];
     return s;
   };
-  auto stage_cost = [&](const T (&x)[8], T v0, T v1, T up_0, T up_1) {
-    const T du0 = v0 - up_0, du1 = v1 - up_1;
-    return track(x, Q) + Ru[0] * v0 * v0 + Ru[1] * v1 * v1
+  auto errors = [&](const T (&x)[4], T (&e)[4]) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) e[s] = x[s] - tga[s];
+  };
+  // Stage cost of make_lmpc_ocp, this axis's (x, v, u_prev) and the
+  // partner's, summed as the plain version sums them.
+  auto stage_cost = [&](const T (&x)[4], T v, T up) {
+    T e[4], e8[8];
+    errors(x, e);
+    full8(e, e8);
+    const T du = v - up;
+    const T vo = xchg(v), duo = xchg(du);
+    const T v0 = (ax == 0) ? v : vo, v1 = (ax == 0) ? vo : v;
+    const T du0 = (ax == 0) ? du : duo, du1 = (ax == 0) ? duo : du;
+    return track(e8, Q8) + Ru[0] * v0 * v0 + Ru[1] * v1 * v1
            + Rdu[0] * du0 * du0 + Rdu[1] * du1 * du1;
   };
+  auto terminal_cost = [&](const T (&x)[4]) {
+    T e[4], e8[8];
+    errors(x, e);
+    full8(e, e8);
+    return track(e8, Qt8);
+  };
 
-  // Rollout and cost of the (clipped) warm start.
+  // Rollout and cost of the (clipped) warm start; every thread of the
+  // axis computes it, thread r = 0 stores X.
   T cost = T(0);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) X[0][i] = Xt[0][i] = x0[i];
+  {
+    T x[4] = {x0a[0], x0a[1], x0a[2], x0a[3]}, up = up0a;
 #pragma unroll 1
-  for (int k = 0; k < N; ++k) {
-    const T up_0 = (k == 0) ? up0[0] : V[k - 1][0];
-    const T up_1 = (k == 0) ? up0[1] : V[k - 1][1];
-    cost = cost + stage_cost(X[k], V[k][0], V[k][1], up_0, up_1);
-    rk4(X[k], V[k], X[k + 1]);
+    for (int k = 0; k < N; ++k) {
+      const T v = S(L::kV + k);
+      cost = cost + stage_cost(x, v, up);
+      T xn[4];
+      rk4(x, v, xn);
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (r == 0) S(L::kX + 4 * k + s) = xn[s];
+        x[s] = xn[s];
+      }
+      up = v;
+    }
+    cost = cost + terminal_cost(x);
   }
-  cost = cost + track(X[N], Qt);
+  __syncwarp(hmask);
   bool done = false;
   T gnorm = T(0);
-  const T Qux2[2][2] = {{T(-2) * Rdu[0], T(0)}, {T(0), T(-2) * Rdu[1]}};
+  const T Qux2 = T(-2) * Rdua;
 
 #pragma unroll 1
   for (int it = 0; it < n_iters; ++it) {
-    // ---- backward: partitioned Riccati over z = [x(8), u_prev(2)] ----
-    T vx8[8], vu2[2] = {T(0), T(0)}, P[8][8], q[8][2], r[2][2];
+    // ---- the stages' (Ad_a, Bd_a), spread over the axis's threads ----
+#pragma unroll 1
+    for (int k = r; k < N; k += R) {
+      T x[4];
+      Xk(k, x);
+      const T u = S(L::kV + k);
+      const T gs = P.m * Gc * dsin(u), bg = Gc * dcos(u);
+      auto fj = [&](const T (&xs)[4], T (&xd)[4], T (&a1)[4], T (&a3)[4]) {
+        T ff, Dff, fr, Dfr, tn, Dtn;
+        strib_d(xs[1], P.ff, ff, Dff);
+        strib_d(xs[1] + P.sr * xs[3], P.ff, fr, Dfr);
+        strib_d(xs[3], P.tn, tn, Dtn);
+        const T tau = -P.r * fr - tn - P.c_rot * xs[3] - P.m * Gc * P.h * dsin(xs[2]);
+        xd[0] = xs[1];
+        xd[1] = (gs - P.c * xs[1] - P.k * xs[0] - ff - fr) / P.m;
+        xd[2] = xs[3];
+        xd[3] = tau / P.inertia;
+        arows(xs, Dff, Dfr, Dtn, a1, a3);
+      };
+      auto jac = [&](const T (&xs)[4], T (&a1)[4], T (&a3)[4]) {
+        T s, Dff, Dfr, Dtn;
+        strib_d(xs[1], P.ff, s, Dff);
+        strib_d(xs[1] + P.sr * xs[3], P.ff, s, Dfr);
+        strib_d(xs[3], P.tn, s, Dtn);
+        arows(xs, Dff, Dfr, Dtn, a1, a3);
+      };
+      T Ad[4][4], Bd[4];
+      rk4_jac4(fj, jac, x, bg, c.rk, Ad, Bd);
+      const int o = L::kJac + L::kJacStride * k;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      vx8[i] = T(2) * Qt[i] * (X[N][i] - tg[i]);
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) P[i][j] = (i == j) ? T(2) * Qt[i] : T(0);
-      q[i][0] = q[i][1] = T(0);
+        for (int j = 0; j < 4; ++j) S(o + 4 * i + j) = Ad[i][j];
+        S(o + 16 + i) = Bd[i];
+      }
     }
-    r[0][0] = r[0][1] = r[1][0] = r[1][1] = T(0);
+    __syncwarp(hmask);
+
+    // ---- backward: partitioned Riccati over [x_a(4), u_prev_a] ----
+    // Held alike by the axis's threads: vx, vu, P (symmetric), q, ra.
+    T vx[4], vu = T(0), Pm[4][4], q[4], ra = T(0);
+    {
+      T xN[4];
+      Xk(N, xN);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        vx[i] = T(2) * Qta[i] * (xN[i] - tga[i]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Pm[i][j] = (i == j) ? T(2) * Qta[i] : T(0);
+        q[i] = T(0);
+      }
+    }
     T gn = T(0);
 #pragma unroll 1
     for (int k = N - 1; k >= 0; --k) {
-      T x[8];
+      T x[4];
+      Xk(k, x);
+      const T v = S(L::kV + k);
+      const T up = (k == 0) ? up0a : S(L::kV + k - 1);
+      const int o = L::kJac + L::kJacStride * k;
+      T Ad[4][4], b[4];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) x[i] = X[k][i];
-      const T v0 = V[k][0], v1 = V[k][1];
-      const T up_0 = (k == 0) ? up0[0] : V[k - 1][0];
-      const T up_1 = (k == 0) ? up0[1] : V[k - 1][1];
-      T Ad[8][8], Bd[8][2];
-      rk4_jac<T, 8, 2>(f8, jac8, x, V[k], c.rk, Ad, Bd);
-
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) Ad[i][j] = S(o + 4 * i + j);
+        b[i] = S(o + 16 + i);
+      }
       // Stage cost quadratics (make_lmpc_ocp.cost_quad).
-      const T du[2] = {v0 - up_0, v1 - up_1};
-      const T vv[2] = {v0, v1};
-      T Qx8[8], Qu[2];
+      const T du = v - up;
+      const T Qx2 = T(-2) * Rdua * du;
+      T Qu;
+      {
+        const T lv = T(2) * Rua * v + T(2) * Rdua * du;
+        T acc = b[0] * vx[0];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        T acc = Ad[0][i] * vx8[0];
-#pragma unroll
-        for (int t = 1; t < 8; ++t) acc = acc + Ad[t][i] * vx8[t];
-        Qx8[i] = T(2) * Q[i] * (x[i] - tg[i]) + acc;
+        for (int tt = 1; tt < 4; ++tt) acc = acc + b[tt] * vx[tt];
+        Qu = lv + acc + vu;
       }
-      T Qx2[2];
+      // Owned rows i of Qx = 2Q e + Ad'vx, Qxx = Ad'P Ad + diag(2Q) and
+      // Qux1 = T2 Ad with T2 = b'P + q'; Quu = T2 b + b'q + r, symmetrised,
+      // plus the jitter.
+      T T2[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        Qx2[j] = T(-2) * Rdu[j] * du[j];
-        const T lv = T(2) * Ru[j] * vv[j] + T(2) * Rdu[j] * du[j];
-        T acc = Bd[0][j] * vx8[0];
+      for (int j = 0; j < 4; ++j) {
+        T acc = b[0] * Pm[0][j];
 #pragma unroll
-        for (int t = 1; t < 8; ++t) acc = acc + Bd[t][j] * vx8[t];
-        Qu[j] = lv + acc + vu2[j];
+        for (int tt = 1; tt < 4; ++tt) acc = acc + b[tt] * Pm[tt][j];
+        T2[j] = acc + q[j];
+      }
+      T Qx[NR], Qxx[NR][4], Qux1[NR];
+#pragma unroll
+      for (int ii = 0; ii < NR; ++ii) {
+        const int i = row(ii);
+        T adc[4];   // column i of Ad
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt) adc[tt] = (R == 1) ? Ad[tt][ii] : S(o + 4 * tt + i);
+        T acc = adc[0] * vx[0];
+#pragma unroll
+        for (int tt = 1; tt < 4; ++tt) acc = acc + adc[tt] * vx[tt];
+        const T Qi = pick4(Qa, i);
+        Qx[ii] = T(2) * Qi * (pick4(x, i) - pick4(tga, i)) + acc;
+        T T1r[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          T a = adc[0] * Pm[0][j];
+#pragma unroll
+          for (int tt = 1; tt < 4; ++tt) a = a + adc[tt] * Pm[tt][j];
+          T1r[j] = a;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          T a = T1r[0] * Ad[0][j];
+#pragma unroll
+          for (int tt = 1; tt < 4; ++tt) a = a + T1r[tt] * Ad[tt][j];
+          Qxx[ii][j] = (j == i) ? a + T(2) * Qi : a;
+        }
+        T a = T2[0] * adc[0];
+#pragma unroll
+        for (int tt = 1; tt < 4; ++tt) a = a + T2[tt] * adc[tt];
+        Qux1[ii] = a;
+      }
+      T Quu;
+      {
+        T acc1 = T2[0] * b[0], acc2 = b[0] * q[0];
+#pragma unroll
+        for (int tt = 1; tt < 4; ++tt) {
+          acc1 = acc1 + T2[tt] * b[tt];
+          acc2 = acc2 + b[tt] * q[tt];
+        }
+        const T Gm = acc1 + acc2 + ra;
+        const T s = T(0.5) * (Gm + Gm);
+        Quu = s + (T(2) * (Rua + Rdua) + T(1e-8));
       }
 
-      // Qxx11 = Ad'P Ad + diag(2Q); T2 = Bd'P + q'; Qux1 = T2 Ad;
-      // Quu = T2 Bd + Bd'q + r, symmetrised, plus the jitter.
-      T AdT[8][8], T1[8][8], Qxx11[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) AdT[i][j] = Ad[j][i];
-      mm(AdT, P, T1);
-      mm(T1, Ad, Qxx11);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Qxx11[i][i] = Qxx11[i][i] + T(2) * Q[i];
-      T T2[2][8], Qux1[2][8], Gm[2][2], Quu[2][2];
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          T acc = Bd[0][a] * P[0][j];
-#pragma unroll
-          for (int t = 1; t < 8; ++t) acc = acc + Bd[t][a] * P[t][j];
-          T2[a][j] = acc + q[j][a];
-        }
-      mm(T2, Ad, Qux1);
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          T acc1 = T2[a][0] * Bd[0][b];
-          T acc2 = Bd[0][a] * q[0][b];
-#pragma unroll
-          for (int t = 1; t < 8; ++t) {
-            acc1 = acc1 + T2[a][t] * Bd[t][b];
-            acc2 = acc2 + Bd[t][a] * q[t][b];
-          }
-          Gm[a][b] = acc1 + acc2 + r[a][b];
-        }
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const T s = T(0.5) * (Gm[a][b] + Gm[b][a]);
-          Quu[a][b] = (a == b) ? s + (T(2) * (Ru[a] + Rdu[a]) + T(1e-8)) : s;
-        }
-
+      // The 2x2 box QP over both tilts; Quu's off-diagonal is 0.
+      const T Quu_p = xchg(Quu), Qu_p = xchg(Qu), v_p = xchg(v);
+      const T q00 = (ax == 0) ? Quu : Quu_p, q11 = (ax == 0) ? Quu_p : Quu;
+      const T Qu0 = (ax == 0) ? Qu : Qu_p, Qu1 = (ax == 0) ? Qu_p : Qu;
+      const T v0 = (ax == 0) ? v : v_p, v1 = (ax == 0) ? v_p : v;
       T d0, d1, f0, f1;
-      boxqp2(Quu[0][0], Quu[0][1], Quu[1][1], Qu[0], Qu[1], -c.u_b - v0,
-             -c.u_b - v1, c.u_b - v0, c.u_b - v1, d0, d1, f0, f1);
+      if constexpr (R == 1) {
+        boxqp2(q00, T(0), q11, Qu0, Qu1, -c.u_b - v0, -c.u_b - v1, c.u_b - v0,
+               c.u_b - v1, d0, d1, f0, f1);
+      } else {
+        boxqp2_group(hmask, R, r, q00, T(0), q11, Qu0, Qu1, -c.u_b - v0,
+                     -c.u_b - v1, c.u_b - v0, c.u_b - v1, d0, d1, f0, f1);
+      }
       const T gn_k = nan_max(dabs(d0), dabs(d1));
       gn = (k == N - 1) ? gn_k : nan_max(gn, gn_k);
-      T b0[10], b1[10], g0[10], g1[10];
+      // Gains on the free set (lanes.cuh::gains2 with h01 = 0): column i of
+      // K1 and K2 divide the other axis's h times this axis's term by det.
+      const T d = (ax == 0) ? d0 : d1, fo = (ax == 0) ? f0 : f1;
+      const T h00 = q00 * f0 * f0 + (T(1) - f0);
+      const T h11 = q11 * f1 * f1 + (T(1) - f1);
+      const T deth = guard_tiny(h00 * h11);
+      const T hp = (ax == 0) ? h11 : h00;
+      T K1[NR], KQ[NR][2];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        b0[j] = Qux1[0][j];
-        b1[j] = Qux1[1][j];
+      for (int ii = 0; ii < NR; ++ii) {
+        const T bo = Qux1[ii] * fo;
+        K1[ii] = -(hp * bo) / deth;
+        KQ[ii][0] = K1[ii];
+        KQ[ii][1] = Qux1[ii];
+        S(L::kK1 + 4 * k + row(ii)) = K1[ii];
       }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        b0[8 + j] = Qux2[0][j];
-        b1[8 + j] = Qux2[1][j];
+      T K2;
+      {
+        const T bo = Qux2 * fo;
+        K2 = -(hp * bo) / deth;
       }
-      gains2<T, 10>(Quu[0][0], Quu[0][1], Quu[1][1], f0, f1, b0, b1, g0, g1);
-      T k1m[2][8], k2m[2][2];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        k1m[0][j] = g0[j];
-        k1m[1][j] = g1[j];
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        k2m[0][j] = g0[8 + j];
-        k2m[1][j] = g1[8 + j];
-      }
-      D[k][0] = d0;
-      D[k][1] = d1;
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) K1[k][a][j] = k1m[a][j];
-        K2[k][a][0] = k2m[a][0];
-        K2[k][a][1] = k2m[a][1];
+      if (r == 0) {
+        S(L::kD + k) = d;
+        S(L::kK2 + k) = K2;
       }
 
-      // Value update.
-      const T w2[2] = {Quu[0][0] * d0 + Quu[0][1] * d1 + Qu[0],
-                       Quu[1][0] * d0 + Quu[1][1] * d1 + Qu[1]};
+      // Value update: owned rows of vx, P and q; vu and ra alike.
+      const T w2 = mul_rn(Quu, d) + Qu;
+      T KQf[4][2];   // {K1[j], Qux1[j]} for j = 0..3
+      gather_rows<R>(hmask, KQ, KQf);
+      T vxo[NR][1], Pn[NR][4], qo[NR][1];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        vx8[i] = Qx8[i] + (k1m[0][i] * w2[0] + k1m[1][i] * w2[1])
-                 + (Qux1[0][i] * d0 + Qux1[1][i] * d1);
+      for (int ii = 0; ii < NR; ++ii) {
+        vxo[ii][0] = Qx[ii] + mul_rn(K1[ii], w2) + mul_rn(Qux1[ii], d);
+        const T K1Q = mul_rn(K1[ii], Quu);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        vu2[j] = Qx2[j] + (k2m[0][j] * w2[0] + k2m[1][j] * w2[1])
-                 + (Qux2[0][j] * d0 + Qux2[1][j] * d1);
-      T K1Q[8][2], M[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          K1Q[i][b] = k1m[0][i] * Quu[0][b] + k1m[1][i] * Quu[1][b];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          M[i][j] = k1m[0][i] * Qux1[0][j] + k1m[1][i] * Qux1[1][j];
+        for (int j = 0; j < 4; ++j)
+          Pn[ii][j] = Qxx[ii][j] + mul_rn(K1Q, KQf[j][0]) + mul_rn(K1[ii], KQf[j][1])
+                      + mul_rn(KQf[j][0], Qux1[ii]);
+        qo[ii][0] = mul_rn(K1Q, K2) + mul_rn(K1[ii], Qux2) + mul_rn(Qux1[ii], K2);
       }
-      // P' = Qxx11 + K1'Quu K1 + M + M', symmetrised (into T1, then P).
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          T1[i][j] = Qxx11[i][j] + (K1Q[i][0] * k1m[0][j] + K1Q[i][1] * k1m[1][j])
-                     + M[i][j] + M[j][i];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) P[i][j] = T(0.5) * (T1[i][j] + T1[j][i]);
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          q[i][b] = (K1Q[i][0] * k2m[0][b] + K1Q[i][1] * k2m[1][b])
-                    + (k1m[0][i] * Qux2[0][b] + k1m[1][i] * Qux2[1][b])
-                    + (Qux1[0][i] * k2m[0][b] + Qux1[1][i] * k2m[1][b]);
+      vu = Qx2 + mul_rn(K2, w2) + mul_rn(Qux2, d);
+      {
+        const T K2Q = mul_rn(K2, Quu);
+        const T M2 = mul_rn(K2, Qux2);
+        const T rn = mul_rn(K2Q, K2) + M2 + M2;
+        const T s = T(0.5) * (rn + rn);
+        ra = s + T(2) * Rdua;
       }
-      T K2Q[2][2], M2[2][2], rn[2][2];
+      T Pf[4][4], vxf[4][1], qf[4][1];
+      gather_rows<R>(hmask, Pn, Pf);
+      gather_rows<R>(hmask, vxo, vxf);
+      gather_rows<R>(hmask, qo, qf);
 #pragma unroll
-      for (int a = 0; a < 2; ++a)
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          K2Q[a][b] = k2m[0][a] * Quu[0][b] + k2m[1][a] * Quu[1][b];
-          M2[a][b] = k2m[0][a] * Qux2[0][b] + k2m[1][a] * Qux2[1][b];
-        }
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b)
-          rn[a][b] = (K2Q[a][0] * k2m[0][b] + K2Q[a][1] * k2m[1][b])
-                     + M2[a][b] + M2[b][a];
-#pragma unroll
-      for (int a = 0; a < 2; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const T s = T(0.5) * (rn[a][b] + rn[b][a]);
-          r[a][b] = (a == b) ? s + T(2) * Rdu[a] : s;
-        }
+        for (int j = 0; j < 4; ++j) Pm[i][j] = T(0.5) * (Pf[i][j] + Pf[j][i]);
+        vx[i] = vxf[i][0];
+        q[i] = qf[i][0];
+      }
     }
     gnorm = gn;
+    __syncwarp(hmask);
 
-    // ---- forward line search with per-lane acceptance ----
+    // ---- forward line search, the alphas in parallel over the axis ----
     bool accepted = done;   // done lanes never move
     T c_best = cost;
 #pragma unroll 1
-    for (int ia = 0; ia < n_alphas && !accepted; ++ia) {
-      const T al = c.alpha[ia];
+    for (int a0 = 0; a0 < n_alphas && !accepted; a0 += R) {
+      const int ia = a0 + r;
       T c_new = T(0);
-#pragma unroll 1
-      for (int k = 0; k < N; ++k) {
-        // u_prev of the trial and of the nominal: up0 at stage 0, else the
-        // previous stage's control.
-        const T tp0 = (k == 0) ? up0[0] : Vt[k - 1][0];
-        const T tp1 = (k == 0) ? up0[1] : Vt[k - 1][1];
-        const T np0 = (k == 0) ? up0[0] : V[k - 1][0];
-        const T np1 = (k == 0) ? up0[1] : V[k - 1][1];
-        T v[2];
+      bool ok = false;
+      if (ia < n_alphas) {
+        T al = c.alpha[0];   // c.alpha[ia], by selects: no local copy
 #pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          T mv1 = K1[k][a][0] * (Xt[k][0] - X[k][0]);
-#pragma unroll
-          for (int t = 1; t < 8; ++t) mv1 = mv1 + K1[k][a][t] * (Xt[k][t] - X[k][t]);
-          const T mv2 = K2[k][a][0] * (tp0 - np0) + K2[k][a][1] * (tp1 - np1);
-          v[a] = clip(V[k][a] + al * D[k][a] + mv1 + mv2, -c.u_b, c.u_b);
-        }
-        c_new = c_new + stage_cost(Xt[k], v[0], v[1], tp0, tp1);
-        rk4(Xt[k], v, Xt[k + 1]);
-        Vt[k][0] = v[0];
-        Vt[k][1] = v[1];
-      }
-      c_new = c_new + track(Xt[N], Qt);
-      if (c_new < cost - T(1e-12)) {
-        accepted = true;
-        c_best = c_new;
+        for (int i = 1; i < kMaxAlphas; ++i) al = (i == ia) ? c.alpha[i] : al;
+        T xt[4] = {x0a[0], x0a[1], x0a[2], x0a[3]}, ut = up0a;
+        const int e0 = L::kTrial + r;
 #pragma unroll 1
         for (int k = 0; k < N; ++k) {
-          V[k][0] = Vt[k][0];
-          V[k][1] = Vt[k][1];
+          T x[4];
+          Xk(k, x);
+          const T np = (k == 0) ? up0a : S(L::kV + k - 1);
+          const int k1 = L::kK1 + 4 * k;
+          T mv1 = S(k1) * (xt[0] - x[0]);
 #pragma unroll
-          for (int i = 0; i < 8; ++i) X[k + 1][i] = Xt[k + 1][i];
+          for (int s = 1; s < 4; ++s) mv1 = mv1 + S(k1 + s) * (xt[s] - x[s]);
+          const T mv2 = mul_rn(S(L::kK2 + k), ut - np);
+          const T v = clip(S(L::kV + k) + al * S(L::kD + k) + mv1 + mv2, -c.u_b, c.u_b);
+          c_new = c_new + stage_cost(xt, v, ut);
+          T xn[4];
+          rk4(xt, v, xn);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            S(e0 + (L::kX + 4 * k + s) * R) = xn[s];
+            xt[s] = xn[s];
+          }
+          S(e0 + (L::kV + k) * R) = v;
+          ut = v;
         }
+        c_new = c_new + terminal_cost(xt);
+        ok = c_new < cost - T(1e-12);
+      }
+      // Bit r of the x axis's threads: alpha a0 + r passed (its y thread
+      // computed the same c_new).
+      const unsigned hit = (__ballot_sync(gmask, ok) >> gfirst) & ((1u << R) - 1u);
+      if (hit != 0u) {
+        const int win = __ffs(hit) - 1;
+        accepted = true;
+        c_best = __shfl_sync(gmask, c_new, win, G);
+#pragma unroll 1
+        for (int e = r; e < L::kTraj; e += R) S(L::kX + e) = S(L::kTrial + e * R + win);
+        __syncwarp(hmask);
       }
     }
     const T rel = (cost - c_best) / (dabs(cost) + T(1));
@@ -495,28 +629,70 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
   }
 
 #pragma unroll 1
-  for (int k = 0; k < N; ++k) {
-    V_out[static_cast<size_t>(2 * k) * sB + lane] = V[k][0];
-    V_out[static_cast<size_t>(2 * k + 1) * sB + lane] = V[k][1];
+  for (int k = r; k < N; k += R)
+    V_out[static_cast<size_t>(2 * k + ax) * sB + lane] = S(L::kV + k);
+  if (t == 0) {
+    cost_out[lane] = cost;
+    gnorm_out[lane] = gnorm;
   }
-  cost_out[lane] = cost;
-  gnorm_out[lane] = gnorm;
 }
 
+// Launch geometry of one instance: lanes and dynamic shared bytes per block.
+template <typename T, int N, int R>
+struct Instance {
+  static constexpr int kLanes = kThreads / (2 * R);
+  static constexpr size_t kShared = sizeof(T) * 2 * kLanes * Layout<N, R>::kPerAxis;
+
+  // Raise the dynamic shared limit above the default 48 KB, once.
+  static cudaError_t prepare() {
+    static cudaError_t err = cudaFuncSetAttribute(
+        lmpc_solve_kernel<T, N, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(kShared));
+    return err;
+  }
+
+  static int run(const T* p, const T* Q, const T* Rw, const T* Qt, const T* tg,
+                 const T* z0, const T* V0, T* V, T* cost, T* gnorm, int B,
+                 int n_iters, int n_alphas, const Consts<T>& c, cudaStream_t s) {
+    const cudaError_t err = prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((B + kLanes - 1) / kLanes);
+    lmpc_solve_kernel<T, N, R><<<grid, kThreads, kShared, s>>>(
+        p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  static int geometry(int* threads, int* lanes, int* shared, int* blocks_per_sm) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *threads = kThreads;
+    *lanes = kLanes;
+    *shared = static_cast<int>(kShared);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, lmpc_solve_kernel<T, N, R>, kThreads, kShared);
+    return static_cast<int>(err);
+  }
+};
+
+int g_group = 2;   // threads per lane: 2 or 8 (lmpc_solve_set_group)
+
 template <typename T, int N>
-void launch_n(const T* p, const T* Q, const T* R, const T* Qt, const T* tg,
-              const T* z0, const T* V0, T* V, T* cost, T* gnorm, int B,
-              int n_iters, int n_alphas, const Consts<T>& c, cudaStream_t s) {
-  const dim3 grid((B + kThreads - 1) / kThreads);
-  lmpc_solve_kernel<T, N><<<grid, kThreads, 0, s>>>(
-      p, Q, R, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c);
+int dispatch(const T* p, const T* Q, const T* Rw, const T* Qt, const T* tg,
+             const T* z0, const T* V0, T* V, T* cost, T* gnorm, int B,
+             int n_iters, int n_alphas, const Consts<T>& c, cudaStream_t s) {
+  if (g_group == 8)
+    return Instance<T, N, 4>::run(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B,
+                                  n_iters, n_alphas, c, s);
+  return Instance<T, N, 1>::run(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B,
+                                n_iters, n_alphas, c, s);
 }
 
 template <typename T>
-int launch(const T* p, const T* Q, const T* R, const T* Qt, const T* tg,
+int launch(const T* p, const T* Q, const T* Rw, const T* Qt, const T* tg,
            const T* z0, const T* V0, T* V, T* cost, T* gnorm, int B, int N,
            int n_iters, int n_alphas, double dt, double u_bound,
            void* stream) {
+  if (N != 6 && N != 12 && N != 20) return kBadShape;
   if (n_iters < 1 || n_alphas < 1 || n_alphas > kMaxAlphas) return kBadBudget;
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Consts<T> c;
@@ -527,20 +703,24 @@ int launch(const T* p, const T* Q, const T* R, const T* Qt, const T* tg,
   for (int i = 0; i < kMaxAlphas; ++i)
     c.alpha[i] = static_cast<T>(std::pow(0.6, i));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 6:
-      launch_n<T, 6>(p, Q, R, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
-      break;
-    case 12:
-      launch_n<T, 12>(p, Q, R, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
-      break;
-    case 20:
-      launch_n<T, 20>(p, Q, R, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
-      break;
-    default:
-      return kBadShape;
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (N == 6)
+    return dispatch<T, 6>(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
+  if (N == 12)
+    return dispatch<T, 12>(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
+  return dispatch<T, 20>(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
+}
+
+template <typename T, int N>
+int geometry_n(int* threads, int* lanes, int* shared, int* blocks_per_sm) {
+  if (g_group == 8) return Instance<T, N, 4>::geometry(threads, lanes, shared, blocks_per_sm);
+  return Instance<T, N, 1>::geometry(threads, lanes, shared, blocks_per_sm);
+}
+
+template <typename T>
+int geometry(int N, int* threads, int* lanes, int* shared, int* blocks_per_sm) {
+  if (N == 6) return geometry_n<T, 6>(threads, lanes, shared, blocks_per_sm);
+  if (N == 12) return geometry_n<T, 12>(threads, lanes, shared, blocks_per_sm);
+  return geometry_n<T, 20>(threads, lanes, shared, blocks_per_sm);
 }
 
 }  // namespace
@@ -563,6 +743,24 @@ int lmpc_solve_f64(const double* p, const double* Q, const double* R,
                    double u_bound, void* stream) {
   return launch<double>(p, Q, R, Qt, tg, z0, V0, V, cost, gnorm, B, N,
                         n_iters, n_alphas, dt, u_bound, stream);
+}
+
+// Threads and lanes per block, dynamic shared bytes per block and resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the
+// instance a call with horizon N and element size itemsize (4 or 8) runs.
+int lmpc_solve_geometry(int N, int itemsize, int* threads, int* lanes,
+                        int* shared, int* blocks_per_sm) {
+  if ((N != 6 && N != 12 && N != 20) || (itemsize != 4 && itemsize != 8))
+    return kBadShape;
+  if (itemsize == 4) return geometry<float>(N, threads, lanes, shared, blocks_per_sm);
+  return geometry<double>(N, threads, lanes, shared, blocks_per_sm);
+}
+
+// Threads per lane of later calls, 2 or 8 (for comparing the two designs).
+int lmpc_solve_set_group(int G) {
+  if (G != 2 && G != 8) return kBadShape;
+  g_group = G;
+  return 0;
 }
 
 }  // extern "C"

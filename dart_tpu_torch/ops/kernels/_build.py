@@ -119,9 +119,12 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, base + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    lib.rmpc_solve_geometry.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4)
-    lib.rmpc_solve_geometry.restype = ctypes.c_int
+    for geometry in (lib.rmpc_solve_geometry, lib.lmpc_solve_geometry):
+        geometry.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4)
+        geometry.restype = ctypes.c_int
+    lib.lmpc_solve_set_group.argtypes = [ctypes.c_int]
+    lib.lmpc_solve_set_group.restype = ctypes.c_int
     lib.dart_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dart_cuda_error_string.restype = ctypes.c_char_p
     return lib

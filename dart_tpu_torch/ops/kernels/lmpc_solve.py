@@ -17,8 +17,11 @@ Q/Qt/target (8,B), R (4,B) = [Ru0, Ru1, Rdu0, Rdu1], z0 (10,B) =
 clipped to +-u_bound first, and the cost is that of the clipped V0's
 rollout until a trial improves on it. gnorm is the max |feedforward| of the
 last backward pass, taken before its line search. On CUDA tensors it
-launches `csrc/lmpc_solve.cu` (one thread per lane); on CPU tensors it runs
-`lmpc_solve_reference`, the plain PyTorch version of `_lmpc_kernel`.
+launches `csrc/lmpc_solve.cu`, which holds a lane with a group of threads
+split along the model's two decoupled axes (x: px, vx, th_y, om_y under
+u0; y: py, vy, th_x, om_x under u1) and keeps the horizon in shared
+memory; on CPU tensors it runs `lmpc_solve_reference`, the plain PyTorch
+version of `_lmpc_kernel`.
 """
 
 from __future__ import annotations
@@ -266,6 +269,30 @@ def lmpc_solve(pvec, Q, R, Qt, target, z0, V0, dt: float,
 
 
 lmpc_solve.launches = 0
+
+
+def launch_geometry(N: int, dtype: torch.dtype) -> dict:
+    """Launch geometry of the CUDA instance for horizon N and `dtype`:
+    threads and lanes per block, dynamic shared bytes per block, and the
+    blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+    Needs the built library and a card."""
+    lib = _build.library()
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = lib.lmpc_solve_geometry(N, torch.empty((), dtype=dtype).element_size(),
+                                  *(ctypes.byref(v) for v in vals))
+    if err == _build.BAD_SHAPE:
+        raise NotImplementedError(f"no lmpc_solve instance for N={N}, {dtype}")
+    if err != 0:
+        raise RuntimeError(f"lmpc_solve geometry query failed: "
+                           f"{_build.error_string(err)} (code {err})")
+    return dict(zip(("threads", "lanes", "shared_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+def set_group(G: int) -> None:
+    """Threads per lane of later launches, 2 or 8 (to compare the designs)."""
+    if _build.library().lmpc_solve_set_group(G) != 0:
+        raise ValueError(f"lmpc_solve has no design with {G} threads per lane")
 
 
 # Per-lane operation counts of the solve (FLOPs; exp, tanh, sin and cos

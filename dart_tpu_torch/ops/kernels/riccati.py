@@ -156,19 +156,74 @@ def riccati_backward(A, B, lx, lu, lxx, lux, luu, gx, gxx, V, u_lo, u_hi,
 riccati_backward.launches = 0
 
 
-def work(N: int, nz: int, B: int, itemsize: int) -> tuple[int, int]:
+def _entry_counts(a, b):
+    """(mask, FLOPs per entry) of the product of two structurally sparse
+    matrices: m non-zero pairs into one entry are m multiplies and m - 1
+    adds."""
+    pairs = a.long() @ b.long()
+    return pairs > 0, (2 * pairs - 1).clamp(min=0)
+
+
+def _stage_counts(N: int, A_nz, B_nz) -> int:
+    """FLOPs of N backward stages over the structural non-zeros of A (nz,
+    nz) and B (nz, 2) (masks; dense where the caller's data is dense), with
+    each value computed once: Vxx_reg A = Vxx A + reg A and Vxx_reg B =
+    Vxx B + reg B reuse the unregularised products, and the symmetric
+    results (Qxx, Quu, the new Vxx) count their upper triangle. lx, lu,
+    lxx, lux, luu, gx and gxx count dense; Vxx's mask follows the
+    recursion."""
+    nz = A_nz.shape[0]
+    up = torch.triu(torch.ones(nz, nz, dtype=torch.bool))
+    up2 = torch.triu(torch.ones(2, 2, dtype=torch.bool))
+    Vxx = torch.ones(nz, nz, dtype=torch.bool)
+    col = torch.ones(nz, 1, dtype=torch.bool)
+    flops = 0
+    for _ in range(N):
+        n = int(_entry_counts(A_nz.T, col)[1].sum()) + nz            # Qx
+        n += int(_entry_counts(B_nz.T, col)[1].sum()) + 2            # Qu
+        W, c = _entry_counts(Vxx, A_nz)
+        n += int(c.sum())
+        Qxx, c = _entry_counts(A_nz.T, W)
+        n += int((c[up]).sum()) + int(up.sum())                      # + lxx
+        n += 2 * int(A_nz.sum())                                     # + reg A
+        Wr = W | A_nz
+        Qux, c = _entry_counts(B_nz.T, Wr)
+        n += int(c.sum()) + 2 * nz                                   # + lux
+        WB, c = _entry_counts(Vxx, B_nz)
+        n += int(c.sum()) + 2 * int(B_nz.sum())                      # + reg B
+        _, c = _entry_counts(B_nz.T, WB | B_nz)
+        n += int(c[up2].sum()) + 3 + 4          # + luu, symmetrise, jitter
+        # The box QP's nine candidates (~150) and the gains on the free set:
+        # h00, h01, h11 and det (9), per column b * f and the 2x2 solve (7).
+        n += 150 + 9 + 7 * int(Qux.any(0).sum())
+        # Vx = Qx + K'(Quu d) + K'Qu + Qux'd: Quu d (6), 12 per entry.
+        n += 6 + 12 * nz
+        # Vxx' = Qxx + K'Quu K + K'Qux + Qux'K on the upper triangle: K'Quu
+        # (6 per row), then 12 per entry; K and Qux are dense over Qux's
+        # columns.
+        kc = Qux.any(0)
+        Vxx = Qxx | (kc[:, None] & kc[None, :])
+        n += 6 * int(kc.sum()) + 12 * int((Vxx & up).sum())
+        flops += n
+    return flops
+
+
+def work(N: int, nz: int, B: int, itemsize: int, A_nz=None,
+         B_nz=None) -> tuple[int, int]:
     """(FLOPs, bytes) of one call at these shapes, for the roofline bound.
 
     Bytes: every input read once, every output written once. Per lane and
     stage that is 2 nz^2 + 5 nz + 8 values in (A, B, lx, lu, lxx, lux,
     luu, V) and 2 + 2 nz out (D, K); per lane once nz + nz^2 (gx, gxx) and
-    one reg. FLOPs per stage, counting the dense algebra as written: the
-    three nz^3 products (Vxx A, A^T (Vxx A), Vxx_reg A) 6 nz^3; the other
-    products, adds and the symmetrisations ~21 nz^2 + 40 nz; the 9-way box
-    QP ~150 and the 2x2 gain solve ~20.
+    one reg. FLOPs: `_stage_counts` over the structural non-zeros of A and
+    B (`A_nz` (nz, nz) and `B_nz` (nz, 2) boolean masks, dense when not
+    given), each value computed once.
     """
     per_stage_in = 2 * nz * nz + 5 * nz + 8
     per_stage_out = 2 + 2 * nz
     values = B * (N * (per_stage_in + per_stage_out) + nz + nz * nz + 1)
-    flops = B * N * (6 * nz ** 3 + 21 * nz * nz + 40 * nz + 170)
-    return flops, values * itemsize
+    if A_nz is None:
+        A_nz = torch.ones(nz, nz, dtype=torch.bool)
+    if B_nz is None:
+        B_nz = torch.ones(nz, 2, dtype=torch.bool)
+    return B * _stage_counts(N, A_nz, B_nz), values * itemsize

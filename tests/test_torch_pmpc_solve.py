@@ -153,8 +153,9 @@ def test_flops_per_solve_equals_jax(N_, n_iters, n_alphas):
 def test_trial_count_and_work():
     """The plain version counts the line-search trials the kernel runs
     (none for a done lane, none after a lane's first accepted alpha);
-    `work` counts them as run, the rest as `flops_per_solve` does, and
-    each input and output once."""
+    `work` counts them as run, the rollout as `flops_per_solve` does, each
+    backward pass over its structural non-zeros, and each input and output
+    once."""
     args = _problem(np.float64, warm=True, seed=3)
     stats = {}
     tps.pmpc_solve_reference(*map(torch.from_numpy, args), dt=DT, n_iters=2,
@@ -162,11 +163,24 @@ def test_trial_count_and_work():
     trials = stats["trials"].numpy()
     assert trials.shape == (B,) and np.all(trials <= 2 * 3)
     assert np.all(trials >= 1)            # the first iteration searches
-    flops, nbytes = tps.work(N, 2, B, int(trials.sum()), 8)
-    assert flops == B * tps.flops_per_solve(N, 2, 0) + \
+    w_nz = (args[2] != 0).any(axis=1).tolist()
+    flops, nbytes = tps.work(N, 2, B, int(trials.sum()), 8, w_nz)
+    assert flops == B * (50 * N + 23 + 2 * (tps._backward_counts(N, w_nz)
+                                             + 10)) + \
         int(trials.sum()) * (75 * N + 80)
     ins = sum(a.size for a in args) - 2 * 36 * B + 7 * B   # Ad/Sd: 7 read
     assert nbytes == (ins + (N * 2 + 2) * B) * 8
+
+
+def test_work_counts_the_structural_nonzeros():
+    """The backward pass's count follows the value Hessian's mask: below
+    the dense hand count of `flops_per_solve` (1190 per stage), and lower
+    still where wdiag's zeros keep states 4 and 5 out of the value."""
+    dense = tps._backward_counts(N, [True] * 6)
+    assert dense < 1190 * N
+    assert tps._backward_counts(N, [True, True, True, True, False,
+                                    False]) < dense
+    assert tps.work(N, 2, B, 0, 4)[0] == B * (50 * N + 23 + 2 * (dense + 10))
 
 
 def test_cpu_tensors_take_plain_path_without_launching():

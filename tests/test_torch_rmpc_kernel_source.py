@@ -2,133 +2,35 @@
 compiled for the host CPU and held to its plain version
 `rmpc_solve_reference`.
 
-A CUDA kernel runs only on the card, but its logic can be checked here: a
-small header (below) stands in for the CUDA runtime and the warp
-primitives the kernel uses, running one std::thread per CUDA thread of a
-block, the blocks in turn, and each `__shfl_sync`, `__ballot_sync` and
-`__syncwarp` through a barrier over the group of threads its mask names.
-So the kernel's own code decides which thread owns which row, what the
-group exchanges, how the box QP's candidates are shared, which alpha the
-parallel line search takes and how the ragged edge of the batch is masked.
-The host compiler does not contract multiplies and adds, so float64 agrees
-with the plain version to a few ulps. Times mean nothing here; the card's
+The source is built for the host through the emulation of the CUDA
+runtime and warp primitives in `tests/_cuda_host.py`, so the kernel's own
+code decides which thread owns which row, what the group exchanges, how the
+box QP's candidates are shared, which alpha the parallel line search takes
+and how the ragged edge of the batch is masked. float64 agrees with the
+plain version to a few ulps. Times mean nothing here; the card's
 comparison is `chip_smoke.py rmpc`."""
 
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from _cuda_host import build_host_library
+
 from dart_tpu_torch.ops.kernels import rmpc_solve as trs
 
-CSRC = Path(trs.__file__).resolve().parents[2] / "csrc"
 KW = dict(dt=0.002, u_bound=0.4, du_bound=0.05, vmax=0.25, v_eps=0.1,
           mu_init=10.0, mu_scale=10.0, mu_max=1e8, tol_con=1e-8)
-
-EMULATION = r"""
-#pragma once
-#include <condition_variable>
-#include <cstring>
-#include <mutex>
-#include <thread>
-#include <vector>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __launch_bounds__(x)
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-struct dim3 { unsigned x, y, z; dim3(unsigned a = 1) : x(a), y(1), z(1) {} };
-struct U3 { unsigned x, y, z; };
-inline thread_local U3 threadIdx, blockIdx;
-inline U3 blockDim;
-inline unsigned char* g_smem = nullptr;
-template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
-template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
-inline int cudaGetLastError() { return 0; }
-struct GroupBarrier {
-  std::mutex m; std::condition_variable cv; int count = 0, gen = 0;
-  void wait(int n) {
-    std::unique_lock<std::mutex> l(m);
-    const int g = gen;
-    if (++count == n) { count = 0; ++gen; cv.notify_all(); }
-    else cv.wait(l, [&] { return gen != g; });
-  }
-};
-inline GroupBarrier g_bar[32];
-inline double g_slot[32];
-inline bool g_pred[32];
-inline void __syncwarp(unsigned mask) {
-  g_bar[__builtin_ctz(mask)].wait(__builtin_popcount(mask));
-}
-template <class T> T __shfl_sync(unsigned mask, T v, int src, int width) {
-  const int l = threadIdx.x % 32;
-  std::memcpy(&g_slot[l], &v, sizeof(T));
-  __syncwarp(mask);
-  T out;
-  std::memcpy(&out, &g_slot[l / width * width + src], sizeof(T));
-  __syncwarp(mask);
-  return out;
-}
-inline unsigned __ballot_sync(unsigned mask, bool p) {
-  g_pred[threadIdx.x % 32] = p;
-  __syncwarp(mask);
-  unsigned out = 0;
-  for (int i = 0; i < 32; ++i)
-    if ((mask >> i) & 1u) out |= (g_pred[i] ? 1u : 0u) << i;
-  __syncwarp(mask);
-  return out;
-}
-inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
-template <class F> void emulate_launch(dim3 grid, int threads, size_t shared, F f) {
-  std::vector<unsigned char> smem(shared);
-  blockDim = {static_cast<unsigned>(threads), 1, 1};
-  for (unsigned b = 0; b < grid.x; ++b) {
-    std::fill(smem.begin(), smem.end(), 0xff);   // stale shared memory: NaN
-    g_smem = smem.data();
-    std::vector<std::thread> ts;
-    for (int t = 0; t < threads; ++t)
-      ts.emplace_back([&, b, t] {
-        threadIdx = {static_cast<unsigned>(t), 0, 0};
-        blockIdx = {b, 0, 0};
-        f();
-      });
-    for (auto& th : ts) th.join();
-  }
-}
-"""
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The kernel library built for the host, its entry points typed."""
-    cxx = shutil.which("g++")
-    if cxx is None:
+    lib = build_host_library("rmpc_solve.cu",
+                             tmp_path_factory.mktemp("rmpc_kernel_source"))
+    if lib is None:
         pytest.skip("no host C++ compiler (g++) to build the kernel source")
-    out = tmp_path_factory.mktemp("rmpc_kernel_source")
-    (out / "cuda_runtime.h").write_text(EMULATION)
-    shutil.copy(CSRC / "lanes.cuh", out / "lanes.cuh")
-    src = (CSRC / "rmpc_solve.cu").read_text()
-    src, n_shared = re.subn(
-        r"extern __shared__ __align__\(16\) unsigned char smem_raw\[\];",
-        "unsigned char* smem_raw = g_smem;", src)
-    src, n_launch = re.subn(
-        r"(rmpc_solve_kernel<T, N>)<<<grid, kThreads, kShared, s>>>\(([^;]*)\);",
-        r"emulate_launch(grid, kThreads, kShared, [&] { \1(\2); });", src)
-    assert n_shared == 1 and n_launch == 1, "the kernel's launch changed"
-    (out / "rmpc_solve.cpp").write_text(src)
-    lib_path = out / "librmpc_host.so"
-    subprocess.run([cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-pthread", "-I", str(out), "-o",
-                    str(lib_path), str(out / "rmpc_solve.cpp")], check=True)
-    lib = ctypes.CDLL(str(lib_path))
     for name in ("rmpc_solve_f32", "rmpc_solve_f64"):
         fn = getattr(lib, name)
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
