@@ -352,7 +352,7 @@ __device__ __forceinline__ void boxqp2_group(unsigned mask, int width, int r,
 
 // ---------------------------------------------------------------------------
 // Block helpers: a lane's algebra split into independent 4-state blocks
-// (the LMPC model's x and y axes), each block held by R threads.
+// (the LMPC model's x and y axes).
 // ---------------------------------------------------------------------------
 
 // a * b rounded once and never fused into a neighbouring add. A dense
@@ -371,20 +371,6 @@ __device__ __forceinline__ double mul_rn(double a, double b) {
 #else
   return a * b;
 #endif
-}
-
-// full[i][m] = own[i / R][m] of thread i % R of the block's R threads, in
-// each of them (R = 1: a copy). Thread r of the block owns rows r, r + R,
-// ...; `mask` names the block's threads, which start at a multiple of R.
-template <int R, typename T, int M>
-__device__ __forceinline__ void gather_rows(unsigned mask,
-                                            const T (&own)[4 / R][M],
-                                            T (&full)[4][M]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int m = 0; m < M; ++m)
-      full[i][m] = (R == 1) ? own[i][m] : __shfl_sync(mask, own[i / R][m], i % R, R);
 }
 
 // Exact (Ad, Bd) of one RK4 step of a 4-state, 1-input block by the chain

@@ -1,5 +1,5 @@
-// Whole LMPC box-DDP solve, one scenario lane per group of G = 2R threads
-// split along the model's two decoupled axes, for Hopper (sm_90a).
+// Whole LMPC box-DDP solve, one scenario lane per group of 8 threads split
+// along the model's two decoupled axes, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dart_tpu/ops/pallas/lmpc_solve.py::_lmpc_kernel
 // (lmpc_solve_pallas) and computes what it computes, step for step: the
@@ -37,8 +37,8 @@
 //   4-state blocks, so the lane's backward pass is two independent
 //   partitioned Riccati recursions over [x_a(4), u_prev_a] (Ad_a 4x4, Bd_a
 //   4, P_a 4x4, q_a 4, r_a, K1_a 4, K2_a, d_a), and a trial's control law
-//   for one axis reads that axis's state alone. A group of G = 2R threads
-//   holds a lane: threads 0..R-1 the x axis, R..2R-1 the y axis. The axes
+//   for one axis reads that axis's state alone. A group of G = 8 threads
+//   holds a lane: threads 0..3 the x axis, 4..7 the y axis. The axes
 //   meet at three points only: the 2x2 box QP (gathered; its off-diagonal
 //   is an exact 0, and boxqp2's first minimum is kept), the stage cost
 //   (track sums i = 0..7 in order, interleaving the axes, so each thread
@@ -46,25 +46,34 @@
 //   plain order), and the line search's acceptance and done mask.
 // - The stages' (Ad_a, Bd_a) depend on the trajectory only, so they come
 //   first: thread r of an axis runs the RK4 Jacobian chain of stages r,
-//   r + R, ... (lanes.cuh::rk4_jac4: the unit rows copied, the model and
+//   r + 4, ... (lanes.cuh::rk4_jac4: the unit rows copied, the model and
 //   its Jacobian rows sharing their exp and tanh) into shared memory. In
-//   the recursion thread r of an axis owns rows r, r + R, ... of Qx, Qxx,
-//   Qux1, K1, the new P, q and vx, and the axis exchanges them with
-//   __shfl_sync (lanes.cuh::gather_rows); the scalars (Qu, Quu, the box
-//   QP, K2, vu, r) are held alike by every thread of the axis.
+//   the recursion thread r of an axis owns row r of Qx, Qxx, Qux1, K1, the
+//   new P, q and vx (column r of Ad), and the axis exchanges K1 with Qux1
+//   and the new rows with __shfl_sync (lanes.cuh::group_gather4: 32
+//   shuffles per stage, 11 more in the box QP and 3 with the partner); the
+//   box QP's nine candidates are spread over the axis's threads
+//   (boxqp2_group, bit for bit boxqp2's first minimum); the scalars (Qu,
+//   Quu, K2, vu, r) are
+//   held alike by every thread of the axis. Two threads per lane (one per
+//   axis, the whole 4x4 algebra each, one alpha at a time) were built and
+//   measured: 0.199 ms per launch on the card against 0.137 for eight.
 // - The line search runs the alphas in parallel: thread (axis, r) rolls
-//   out its axis's trial under alpha 0.6^(a0 + r) for chunks a0 = 0, R, ...
+//   out its axis's trial under alpha 0.6^(a0 + r) for chunks a0 = 0, 4, ...
 //   in order, the two axis threads of an alpha trading their stage terms,
 //   and the lane takes the smallest index whose cost passes the test (a
 //   ballot over the group). Every trial starts from the same X, V, D, K,
 //   so this is the TPU kernel's `~accepted & (c_new < cost - 1e-12)`
 //   exactly. Done lanes skip the search.
 // - The horizon lives in dynamic shared memory, per lane and axis: X[1..N],
-//   V, D, K1_a, K2_a, the stages' (Ad_a, Bd_a) and R trial trajectories,
-//   (32 + 5R) N values. A block is one warp of 32 / G lanes. Element idx of
-//   the warp's lane-axis slot sits at idx * 32 / R + 2 lw + axis, so the
-//   threads of a warp hit distinct banks (rows r of one axis 8 banks apart
-//   when R = 4). launch() raises the instance's dynamic shared limit once.
+//   V, D, K1_a, K2_a, the stages' (Ad_a, Bd_a) and 4 trial trajectories,
+//   52 N values (624 at N = 12: 2496 bytes in float, 4992 in double). A
+//   block is one warp of 4 lanes (19968 bytes in float at N = 12, 39936 in
+//   double; 33280 and 66560 at N = 20, above the default 48 KB, so
+//   launch() raises the instance's dynamic shared limit once). Element idx
+//   of the warp's lane-axis slot lw, axis sits at idx * 8 + 2 lw + axis,
+//   so the threads of a warp reading a row, a broadcast value or their own
+//   trial slices hit distinct banks (rows r of one axis 8 banks apart).
 // - The escalation front end (control/mpc.py) reads max(gnorm) on the host
 //   after each round, so every control step syncs.
 //
@@ -95,6 +104,9 @@ using namespace dart;
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 32;   // threads per block: one warp
+constexpr int R = 4;           // threads per axis
+constexpr int G = 2 * R;       // threads per lane
+constexpr int LW = kWarp / G;  // lanes per warp (= per block)
 
 __device__ __forceinline__ float dexp(float x) { return expf(x); }
 __device__ __forceinline__ double dexp(double x) { return exp(x); }
@@ -155,8 +167,8 @@ __device__ __forceinline__ int gidx(int a, int s) {
 // V (N) form the trajectory the line search replaces; X[0] stays in
 // registers. Stage k's Ad_a (row-major) and Bd_a sit at kJac + 21 k (21,
 // not 20: the four threads of an axis storing four stages hit four banks).
-// Element e of trial slot j sits at kTrial + e * R + j.
-template <int N, int R>
+// Element e of trial slot j (alpha a0 + j) sits at kTrial + e * R + j.
+template <int N>
 struct Layout {
   static constexpr int kX = 0;
   static constexpr int kV = 4 * N;
@@ -170,7 +182,7 @@ struct Layout {
   static constexpr int kPerAxis = kTrial + R * kTraj;
 };
 
-template <typename T, int N, int R>
+template <typename T, int N>
 __global__ void __launch_bounds__(kThreads)
 lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
                   const T* __restrict__ R_in, const T* __restrict__ Qt_in,
@@ -178,16 +190,12 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
                   const T* __restrict__ V0, T* __restrict__ V_out,
                   T* __restrict__ cost_out, T* __restrict__ gnorm_out, int B,
                   int n_iters, int n_alphas, const Consts<T> c) {
-  static_assert(R == 1 || R == 4, "R threads per axis: 1 or 4");
-  constexpr int G = 2 * R;          // threads per lane
-  constexpr int LW = kWarp / G;     // lanes per warp (= per block)
   constexpr int SL = 2 * LW;        // lane-axis slots per warp
-  constexpr int NR = 4 / R;         // rows a thread owns
-  using L = Layout<N, R>;
+  using L = Layout<N>;
   const int tid = threadIdx.x;
   const int t = tid % G;
   const int ax = t / R;                      // 0: x axis, 1: y axis
-  const int r = (R == 1) ? 0 : t % R;        // rows r, r + R, ...; alpha r
+  const int r = t % R;                       // row r, alpha a0 + r
   const int lw = tid / G;
   const int lane = blockIdx.x * LW + lw;
   if (lane >= B) return;                     // the whole group leaves together
@@ -195,7 +203,6 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
   const unsigned gmask = ((1u << G) - 1u) << gfirst;
   const unsigned hmask = ((1u << R) - 1u) << (gfirst + ax * R);
   const unsigned pmask = (1u << (gfirst + r)) | (1u << (gfirst + R + r));
-  auto row = [&](int ii) { return r + R * ii; };
   // The partner: the other axis's thread with the same r (the same alpha).
   auto xchg = [&](T v) { return __shfl_sync(pmask, v, t ^ R, G); };
 
@@ -437,9 +444,9 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
         for (int tt = 1; tt < 4; ++tt) acc = acc + b[tt] * vx[tt];
         Qu = lv + acc + vu;
       }
-      // Owned rows i of Qx = 2Q e + Ad'vx, Qxx = Ad'P Ad + diag(2Q) and
-      // Qux1 = T2 Ad with T2 = b'P + q'; Quu = T2 b + b'q + r, symmetrised,
-      // plus the jitter.
+      // Row r of Qx = 2Q e + Ad'vx, Qxx = Ad'P Ad + diag(2Q) and Qux1 =
+      // T2 Ad with T2 = b'P + q'; Quu = T2 b + b'q + r, symmetrised, plus
+      // the jitter.
       T T2[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -448,18 +455,19 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
         for (int tt = 1; tt < 4; ++tt) acc = acc + b[tt] * Pm[tt][j];
         T2[j] = acc + q[j];
       }
-      T Qx[NR], Qxx[NR][4], Qux1[NR];
+      T Qxx[4];   // row r
+      const T Qr = pick4(Qa, r);
+      T adc[4];   // column r of Ad
 #pragma unroll
-      for (int ii = 0; ii < NR; ++ii) {
-        const int i = row(ii);
-        T adc[4];   // column i of Ad
-#pragma unroll
-        for (int tt = 0; tt < 4; ++tt) adc[tt] = (R == 1) ? Ad[tt][ii] : S(o + 4 * tt + i);
+      for (int tt = 0; tt < 4; ++tt) adc[tt] = S(o + 4 * tt + r);
+      T Qx;
+      {
         T acc = adc[0] * vx[0];
 #pragma unroll
         for (int tt = 1; tt < 4; ++tt) acc = acc + adc[tt] * vx[tt];
-        const T Qi = pick4(Qa, i);
-        Qx[ii] = T(2) * Qi * (pick4(x, i) - pick4(tga, i)) + acc;
+        Qx = T(2) * Qr * (pick4(x, r) - pick4(tga, r)) + acc;
+      }
+      {
         T T1r[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
@@ -473,12 +481,15 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
           T a = T1r[0] * Ad[0][j];
 #pragma unroll
           for (int tt = 1; tt < 4; ++tt) a = a + T1r[tt] * Ad[tt][j];
-          Qxx[ii][j] = (j == i) ? a + T(2) * Qi : a;
+          Qxx[j] = (j == r) ? a + T(2) * Qr : a;
         }
+      }
+      T Qux1;
+      {
         T a = T2[0] * adc[0];
 #pragma unroll
         for (int tt = 1; tt < 4; ++tt) a = a + T2[tt] * adc[tt];
-        Qux1[ii] = a;
+        Qux1 = a;
       }
       T Quu;
       {
@@ -499,31 +510,19 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
       const T Qu0 = (ax == 0) ? Qu : Qu_p, Qu1 = (ax == 0) ? Qu_p : Qu;
       const T v0 = (ax == 0) ? v : v_p, v1 = (ax == 0) ? v_p : v;
       T d0, d1, f0, f1;
-      if constexpr (R == 1) {
-        boxqp2(q00, T(0), q11, Qu0, Qu1, -c.u_b - v0, -c.u_b - v1, c.u_b - v0,
-               c.u_b - v1, d0, d1, f0, f1);
-      } else {
-        boxqp2_group(hmask, R, r, q00, T(0), q11, Qu0, Qu1, -c.u_b - v0,
-                     -c.u_b - v1, c.u_b - v0, c.u_b - v1, d0, d1, f0, f1);
-      }
+      boxqp2_group(hmask, R, r, q00, T(0), q11, Qu0, Qu1, -c.u_b - v0,
+                   -c.u_b - v1, c.u_b - v0, c.u_b - v1, d0, d1, f0, f1);
       const T gn_k = nan_max(dabs(d0), dabs(d1));
       gn = (k == N - 1) ? gn_k : nan_max(gn, gn_k);
-      // Gains on the free set (lanes.cuh::gains2 with h01 = 0): column i of
+      // Gains on the free set (lanes.cuh::gains2 with h01 = 0): entry r of
       // K1 and K2 divide the other axis's h times this axis's term by det.
       const T d = (ax == 0) ? d0 : d1, fo = (ax == 0) ? f0 : f1;
       const T h00 = q00 * f0 * f0 + (T(1) - f0);
       const T h11 = q11 * f1 * f1 + (T(1) - f1);
       const T deth = guard_tiny(h00 * h11);
       const T hp = (ax == 0) ? h11 : h00;
-      T K1[NR], KQ[NR][2];
-#pragma unroll
-      for (int ii = 0; ii < NR; ++ii) {
-        const T bo = Qux1[ii] * fo;
-        K1[ii] = -(hp * bo) / deth;
-        KQ[ii][0] = K1[ii];
-        KQ[ii][1] = Qux1[ii];
-        S(L::kK1 + 4 * k + row(ii)) = K1[ii];
-      }
+      const T K1 = -(hp * (Qux1 * fo)) / deth;
+      S(L::kK1 + 4 * k + r) = K1;
       T K2;
       {
         const T bo = Qux2 * fo;
@@ -534,21 +533,19 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
         S(L::kK2 + k) = K2;
       }
 
-      // Value update: owned rows of vx, P and q; vu and ra alike.
+      // Value update: row r of vx, P and q; vu and ra alike.
       const T w2 = mul_rn(Quu, d) + Qu;
-      T KQf[4][2];   // {K1[j], Qux1[j]} for j = 0..3
-      gather_rows<R>(hmask, KQ, KQf);
-      T vxo[NR][1], Pn[NR][4], qo[NR][1];
+      const T kq[2] = {K1, Qux1};
+      T KQ[4][2];   // {K1[j], Qux1[j]} for j = 0..3
+      group_gather4(hmask, R, kq, KQ);
+      const T K1Q = mul_rn(K1, Quu);
+      T own[6];   // row r of the new P, then vx[r] and q[r]
 #pragma unroll
-      for (int ii = 0; ii < NR; ++ii) {
-        vxo[ii][0] = Qx[ii] + mul_rn(K1[ii], w2) + mul_rn(Qux1[ii], d);
-        const T K1Q = mul_rn(K1[ii], Quu);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Pn[ii][j] = Qxx[ii][j] + mul_rn(K1Q, KQf[j][0]) + mul_rn(K1[ii], KQf[j][1])
-                      + mul_rn(KQf[j][0], Qux1[ii]);
-        qo[ii][0] = mul_rn(K1Q, K2) + mul_rn(K1[ii], Qux2) + mul_rn(Qux1[ii], K2);
-      }
+      for (int j = 0; j < 4; ++j)
+        own[j] = Qxx[j] + mul_rn(K1Q, KQ[j][0]) + mul_rn(K1, KQ[j][1])
+                 + mul_rn(KQ[j][0], Qux1);
+      own[4] = Qx + mul_rn(K1, w2) + mul_rn(Qux1, d);
+      own[5] = mul_rn(K1Q, K2) + mul_rn(K1, Qux2) + mul_rn(Qux1, K2);
       vu = Qx2 + mul_rn(K2, w2) + mul_rn(Qux2, d);
       {
         const T K2Q = mul_rn(K2, Quu);
@@ -557,16 +554,14 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
         const T s = T(0.5) * (rn + rn);
         ra = s + T(2) * Rdua;
       }
-      T Pf[4][4], vxf[4][1], qf[4][1];
-      gather_rows<R>(hmask, Pn, Pf);
-      gather_rows<R>(hmask, vxo, vxf);
-      gather_rows<R>(hmask, qo, qf);
+      T full[4][6];
+      group_gather4(hmask, R, own, full);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) Pm[i][j] = T(0.5) * (Pf[i][j] + Pf[j][i]);
-        vx[i] = vxf[i][0];
-        q[i] = qf[i][0];
+        for (int j = 0; j < 4; ++j) Pm[i][j] = T(0.5) * (full[i][j] + full[j][i]);
+        vx[i] = full[i][4];
+        q[i] = full[i][5];
       }
     }
     gnorm = gn;
@@ -638,15 +633,15 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
 }
 
 // Launch geometry of one instance: lanes and dynamic shared bytes per block.
-template <typename T, int N, int R>
+template <typename T, int N>
 struct Instance {
-  static constexpr int kLanes = kThreads / (2 * R);
-  static constexpr size_t kShared = sizeof(T) * 2 * kLanes * Layout<N, R>::kPerAxis;
+  static constexpr int kLanes = LW;
+  static constexpr size_t kShared = sizeof(T) * 2 * kLanes * Layout<N>::kPerAxis;
 
   // Raise the dynamic shared limit above the default 48 KB, once.
   static cudaError_t prepare() {
     static cudaError_t err = cudaFuncSetAttribute(
-        lmpc_solve_kernel<T, N, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        lmpc_solve_kernel<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kShared));
     return err;
   }
@@ -657,7 +652,7 @@ struct Instance {
     const cudaError_t err = prepare();
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((B + kLanes - 1) / kLanes);
-    lmpc_solve_kernel<T, N, R><<<grid, kThreads, kShared, s>>>(
+    lmpc_solve_kernel<T, N><<<grid, kThreads, kShared, s>>>(
         p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c);
     return static_cast<int>(cudaGetLastError());
   }
@@ -669,23 +664,10 @@ struct Instance {
     *lanes = kLanes;
     *shared = static_cast<int>(kShared);
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, lmpc_solve_kernel<T, N, R>, kThreads, kShared);
+        blocks_per_sm, lmpc_solve_kernel<T, N>, kThreads, kShared);
     return static_cast<int>(err);
   }
 };
-
-int g_group = 2;   // threads per lane: 2 or 8 (lmpc_solve_set_group)
-
-template <typename T, int N>
-int dispatch(const T* p, const T* Q, const T* Rw, const T* Qt, const T* tg,
-             const T* z0, const T* V0, T* V, T* cost, T* gnorm, int B,
-             int n_iters, int n_alphas, const Consts<T>& c, cudaStream_t s) {
-  if (g_group == 8)
-    return Instance<T, N, 4>::run(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B,
-                                  n_iters, n_alphas, c, s);
-  return Instance<T, N, 1>::run(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B,
-                                n_iters, n_alphas, c, s);
-}
 
 template <typename T>
 int launch(const T* p, const T* Q, const T* Rw, const T* Qt, const T* tg,
@@ -704,23 +686,17 @@ int launch(const T* p, const T* Q, const T* Rw, const T* Qt, const T* tg,
     c.alpha[i] = static_cast<T>(std::pow(0.6, i));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N == 6)
-    return dispatch<T, 6>(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
+    return Instance<T, 6>::run(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
   if (N == 12)
-    return dispatch<T, 12>(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
-  return dispatch<T, 20>(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
-}
-
-template <typename T, int N>
-int geometry_n(int* threads, int* lanes, int* shared, int* blocks_per_sm) {
-  if (g_group == 8) return Instance<T, N, 4>::geometry(threads, lanes, shared, blocks_per_sm);
-  return Instance<T, N, 1>::geometry(threads, lanes, shared, blocks_per_sm);
+    return Instance<T, 12>::run(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
+  return Instance<T, 20>::run(p, Q, Rw, Qt, tg, z0, V0, V, cost, gnorm, B, n_iters, n_alphas, c, s);
 }
 
 template <typename T>
 int geometry(int N, int* threads, int* lanes, int* shared, int* blocks_per_sm) {
-  if (N == 6) return geometry_n<T, 6>(threads, lanes, shared, blocks_per_sm);
-  if (N == 12) return geometry_n<T, 12>(threads, lanes, shared, blocks_per_sm);
-  return geometry_n<T, 20>(threads, lanes, shared, blocks_per_sm);
+  if (N == 6) return Instance<T, 6>::geometry(threads, lanes, shared, blocks_per_sm);
+  if (N == 12) return Instance<T, 12>::geometry(threads, lanes, shared, blocks_per_sm);
+  return Instance<T, 20>::geometry(threads, lanes, shared, blocks_per_sm);
 }
 
 }  // namespace
@@ -754,13 +730,6 @@ int lmpc_solve_geometry(int N, int itemsize, int* threads, int* lanes,
     return kBadShape;
   if (itemsize == 4) return geometry<float>(N, threads, lanes, shared, blocks_per_sm);
   return geometry<double>(N, threads, lanes, shared, blocks_per_sm);
-}
-
-// Threads per lane of later calls, 2 or 8 (for comparing the two designs).
-int lmpc_solve_set_group(int G) {
-  if (G != 2 && G != 8) return kBadShape;
-  g_group = G;
-  return 0;
 }
 
 }  // extern "C"

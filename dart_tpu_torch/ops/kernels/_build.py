@@ -123,8 +123,6 @@ def library() -> ctypes.CDLL:
         geometry.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4)
         geometry.restype = ctypes.c_int
-    lib.lmpc_solve_set_group.argtypes = [ctypes.c_int]
-    lib.lmpc_solve_set_group.restype = ctypes.c_int
     lib.dart_cuda_error_string.argtypes = [ctypes.c_int]
     lib.dart_cuda_error_string.restype = ctypes.c_char_p
     return lib

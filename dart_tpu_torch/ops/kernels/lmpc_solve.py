@@ -289,11 +289,6 @@ def launch_geometry(N: int, dtype: torch.dtype) -> dict:
                     (v.value for v in vals)))
 
 
-def set_group(G: int) -> None:
-    """Threads per lane of later launches, 2 or 8 (to compare the designs)."""
-    if _build.library().lmpc_solve_set_group(G) != 0:
-        raise ValueError(f"lmpc_solve has no design with {G} threads per lane")
-
 
 # Per-lane operation counts of the solve (FLOPs; exp, tanh, sin and cos
 # apart as transcendentals), over the function's structural non-zeros.

@@ -38,9 +38,8 @@ def emulated(tmp_path_factory):
     return lib
 
 
-def _run(lib, args, n_iters, n_alphas, group):
+def _run(lib, args, n_iters, n_alphas):
     """The emulated kernel on the wrapper's inputs (V0 clipped first)."""
-    assert lib.lmpc_solve_set_group(group) == 0
     V0 = torch.clamp(args[-1], -KW["u_bound"], KW["u_bound"]).contiguous()
     N, _, Bt = V0.shape
     V = torch.empty_like(V0)
@@ -85,22 +84,21 @@ def _stiff_problem(dtype):
     return [a[..., 250:287].contiguous() for a in args]
 
 
-# (N, iterations, alphas, dtype, threads per lane): the production budget
-# 2x3 in float64 and float32; 2x6 in float64 on the stiff problem, whose
-# alphas run in two chunks when an axis has 4 threads.
-CASES = {"N6-2x3-f64-G2": (6, 2, 3, torch.float64, 2),
-         "N6-2x3-f32-G2": (6, 2, 3, torch.float32, 2),
-         "N6-2x6-f64-G2": (6, 2, 6, torch.float64, 2),
-         "N6-2x3-f64-G8": (6, 2, 3, torch.float64, 8),
-         "N6-2x6-f64-G8": (6, 2, 6, torch.float64, 8)}
+# (N, iterations, alphas, dtype): the production budget 2x3 in float64 and
+# float32, at N=6 and N=12; 2x6 in float64 on the stiff problem, whose
+# alphas run in two chunks of an axis's 4 threads.
+CASES = {"N6-2x3-f64": (6, 2, 3, torch.float64),
+         "N6-2x3-f32": (6, 2, 3, torch.float32),
+         "N12-2x3-f64": (12, 2, 3, torch.float64),
+         "N6-2x6-f64-stiff": (6, 2, 6, torch.float64)}
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_source_matches_plain(emulated, case):
-    """37 lanes, a ragged batch (the last block part full)."""
-    N, it, na, dtype, group = CASES[case]
+    """37 lanes, a ragged batch (9 blocks of 4 lanes and one more)."""
+    N, it, na, dtype = CASES[case]
     args = _problem(3, N, 37, dtype) if na <= 4 else _stiff_problem(dtype)
-    V, cost, gn = _run(emulated, args, it, na, group)
+    V, cost, gn = _run(emulated, args, it, na)
     Vp, cp, gp = tls.lmpc_solve_reference(*args, **KW, n_iters=it,
                                           n_alphas=na)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
@@ -119,14 +117,13 @@ def test_late_alphas_decide_lanes():
     assert int((V6 != V4).flatten(0, 1).any(0).sum()) > 0
 
 
-@pytest.mark.parametrize("group", [2, 8])
-def test_kernel_source_nan_lane_stays_alone(emulated, group):
+def test_kernel_source_nan_lane_stays_alone(emulated):
     """A NaN 34-vector in lane 21 (not a block's first lane) reports NaN
     cost and gnorm and leaves every other lane exactly as it was."""
     args = _problem(4, 6, 37, torch.float64)
-    clean = _run(emulated, args, 2, 3, group)
+    clean = _run(emulated, args, 2, 3)
     args[0][:, 21] = float("nan")
-    got = _run(emulated, args, 2, 3, group)
+    got = _run(emulated, args, 2, 3)
     assert bool(torch.isnan(got[1][21])) and bool(torch.isnan(got[2][21]))
     rest = torch.arange(37) != 21
     for x, y in zip(got, clean):
