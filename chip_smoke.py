@@ -926,6 +926,16 @@ def phase_rescue(dev: torch.device) -> int:
     return ric
 
 
+def print_geometry(name: str, launch_geometry, N_: int) -> None:
+    for dtype in (torch.float32, torch.float64):
+        geo = launch_geometry(N_, dtype)
+        print(f"[times] {name} launch geometry N={N_} "
+              f"{str(dtype).replace('torch.', '')}: {geo['threads']} threads "
+              f"and {geo['lanes']} lanes per block, {geo['shared_bytes']} "
+              f"dynamic shared bytes per block, {geo['blocks_per_sm']} blocks "
+              f"per SM resident, {-(-B // geo['lanes'])} blocks at B={B}")
+
+
 def phase_kernel_times(dev: torch.device, card: str) -> dict:
     from dart_tpu_torch.ops.kernels import riccati as kric
     from dart_tpu_torch.ops.kernels import rmpc_solve as krs
@@ -954,13 +964,7 @@ def phase_kernel_times(dev: torch.device, card: str) -> dict:
     print(f"[times] rmpc_solve work: {flops} FLOPs, {trans} tanh/sin/cos "
           f"({trials} line-search trials, {trials / B:.2f} per lane), "
           f"{nbytes} bytes; bound {bound_ms:.6f} ms by {bound_by}")
-    for dtype in (torch.float32, torch.float64):
-        geo = krs.launch_geometry(RMPC_N, dtype)
-        print(f"[times] rmpc_solve launch geometry N={RMPC_N} "
-              f"{str(dtype).replace('torch.', '')}: {geo['threads']} threads "
-              f"and {geo['lanes']} lanes per block, {geo['shared_bytes']} "
-              f"dynamic shared bytes per block, {geo['blocks_per_sm']} blocks "
-              f"per SM resident, {-(-B // geo['lanes'])} blocks at B={B}")
+    print_geometry("rmpc_solve", krs.launch_geometry, RMPC_N)
     out["rmpc_solve"] = {"ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1003,13 +1007,7 @@ def phase_kernel_times(dev: torch.device, card: str) -> dict:
     print(f"[times] lmpc_solve work: {flops} FLOPs, {trans} exp/tanh/sin/cos "
           f"({trials} line-search trials, {trials / B:.2f} per lane), "
           f"{nbytes} bytes; bound {bound_ms:.6f} ms by {bound_by}")
-    for dtype in (torch.float32, torch.float64):
-        geo = kls.launch_geometry(LMPC_N, dtype)
-        print(f"[times] lmpc_solve launch geometry N={LMPC_N} "
-              f"{str(dtype).replace('torch.', '')}: {geo['threads']} threads "
-              f"and {geo['lanes']} lanes per block, {geo['shared_bytes']} "
-              f"dynamic shared bytes per block, {geo['blocks_per_sm']} blocks "
-              f"per SM resident, {-(-B // geo['lanes'])} blocks at B={B}")
+    print_geometry("lmpc_solve", kls.launch_geometry, LMPC_N)
     out["lmpc_solve"] = {"ms": ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
     return out
@@ -1030,16 +1028,16 @@ LMPC_SEED = 3
 # lane an H100 run left short; PERF.md section 6). The kernel's semantics
 # (2x3 per round, alphas 1, 0.6, 0.36, no regularisation, a lane that
 # accepts no trial is done) leave lanes short of 1 cm after 1024 steps,
-# nearly all at friction mu = 0.2. On the card 107 lanes never leave rest:
-# the first solve from rest returns V = 0 exactly, so u = 0, the plant
-# stays at rest and the next step repeats the solve; 67 move and stall
-# short. In JAX 106 of the 107 stay at rest and 64 of the 67 stall, and 28
-# of 28 sampled lanes the card brings within 1 cm end within. So JAX's
-# semantics leave 170 lanes short, 106 of them at rest. The card and JAX
-# end 4 of the card's 174 short lanes differently (2.3%): float32 exp and
-# tanh round differently in each library and tip line-search ties their
-# own way. The gates allow twice that, 8 lanes. The lanes at rest must also
-# be exactly the first solve's V = 0 lanes.
+# nearly all at friction mu = 0.2. Lanes never leave rest where the first
+# solve from rest returns V = 0 exactly: u = 0, the plant stays at rest and
+# the next step repeats the solve. With the first, one-thread-per-lane
+# kernel the card left 174 lanes short (107 at rest, 67 stalled); JAX's
+# semantics leave 170 of them short, 106 at rest, and end 4 of the 174
+# otherwise: float32 exp and tanh round differently in each library and
+# tip line-search ties their own way. The gates allow twice that, 8 lanes.
+# The kernel split along the axes leaves 171 short (105 at rest); it and
+# JAX end 8 lanes otherwise, 4 each way. The lanes at rest must also be
+# exactly the first solve's V = 0 lanes.
 LMPC_JAX_SHORT, LMPC_JAX_REST, LMPC_FLIPS = 170, 106, 8
 LMPC_SUCCESS_ALL = 1 - (LMPC_JAX_SHORT + LMPC_FLIPS) / B
 LMPC_SUCCESS_MOVED = 1 - (LMPC_JAX_SHORT - LMPC_JAX_REST + LMPC_FLIPS) / (

@@ -259,16 +259,16 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
     for (int s = 0; s < 4; ++s) x[s] = (k == 0) ? x0a[s] : S(L::kX + 4 * (k - 1) + s);
   };
 
-  // xdot of this axis (gs = m g sin u).
-  auto model = [&](const T (&x)[4], T gs, T (&xd)[4]) {
-    const T ff = strib(x[1], P.ff);
-    const T fr = strib(x[1] + P.sr * x[3], P.ff);
-    const T tn = strib(x[3], P.tn);
+  // xdot of this axis from its friction terms (gs = m g sin u).
+  auto xdot = [&](const T (&x)[4], T gs, T ff, T fr, T tn, T (&xd)[4]) {
     const T tau = -P.r * fr - tn - P.c_rot * x[3] - P.m * Gc * P.h * dsin(x[2]);
     xd[0] = x[1];
     xd[1] = (gs - P.c * x[1] - P.k * x[0] - ff - fr) / P.m;
     xd[2] = x[3];
     xd[3] = tau / P.inertia;
+  };
+  auto model = [&](const T (&x)[4], T gs, T (&xd)[4]) {
+    xdot(x, gs, strib(x[1], P.ff), strib(x[1] + P.sr * x[3], P.ff), strib(x[3], P.tn), xd);
   };
   // Rows 1 and 3 of this axis's continuous A from the friction slopes.
   auto arows = [&](const T (&x)[4], T Dff, T Dfr, T Dtn, T (&a1)[4], T (&a3)[4]) {
@@ -378,11 +378,7 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
         strib_d(xs[1], P.ff, ff, Dff);
         strib_d(xs[1] + P.sr * xs[3], P.ff, fr, Dfr);
         strib_d(xs[3], P.tn, tn, Dtn);
-        const T tau = -P.r * fr - tn - P.c_rot * xs[3] - P.m * Gc * P.h * dsin(xs[2]);
-        xd[0] = xs[1];
-        xd[1] = (gs - P.c * xs[1] - P.k * xs[0] - ff - fr) / P.m;
-        xd[2] = xs[3];
-        xd[3] = tau / P.inertia;
+        xdot(xs, gs, ff, fr, tn, xd);
         arows(xs, Dff, Dfr, Dtn, a1, a3);
       };
       auto jac = [&](const T (&xs)[4], T (&a1)[4], T (&a3)[4]) {

@@ -128,5 +128,23 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def launch_geometry(kernel: str, N: int, itemsize: int) -> dict:
+    """Threads and lanes per block, dynamic shared bytes per block and the
+    blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    of `kernel`'s CUDA instance for horizon N and elements of `itemsize`
+    bytes (4 or 8), from its C query `<kernel>_geometry`."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    err = getattr(library(), f"{kernel}_geometry")(
+        N, itemsize, *(ctypes.byref(v) for v in vals))
+    if err == BAD_SHAPE:
+        raise NotImplementedError(f"no {kernel} instance for N={N}, "
+                                  f"{itemsize}-byte elements")
+    if err != 0:
+        raise RuntimeError(f"{kernel} geometry query failed: "
+                           f"{error_string(err)} (code {err})")
+    return dict(zip(("threads", "lanes", "shared_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
 def error_string(code: int) -> str:
     return library().dart_cuda_error_string(code).decode()

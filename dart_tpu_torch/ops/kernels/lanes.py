@@ -197,13 +197,16 @@ def _nnz(m) -> int:
     return int(m.sum())
 
 
-def _mmc(a, b, unit=None):
+def _mmc(a, b, unit=None, out=None):
     """(mask, FLOPs) of the product of two structurally sparse matrices:
     m non-zero pairs into one entry are m multiplies, less those by the
-    entries of `a` that `unit` marks as exactly 1, and m - 1 adds."""
+    entries of `a` that `unit` marks as exactly 1, and m - 1 adds. With
+    `out`, only the entries it marks are counted (the upper triangle of a
+    symmetric product)."""
     pairs = a.long() @ b.long()
     mults = pairs - (0 if unit is None else unit.long() @ b.long())
-    return pairs > 0, int((mults + (pairs - 1).clamp(min=0)).sum())
+    flops = mults + (pairs - 1).clamp(min=0)
+    return pairs > 0, int((flops if out is None else flops[out]).sum())
 
 
 def _addc(*ms):

@@ -272,22 +272,10 @@ lmpc_solve.launches = 0
 
 
 def launch_geometry(N: int, dtype: torch.dtype) -> dict:
-    """Launch geometry of the CUDA instance for horizon N and `dtype`:
-    threads and lanes per block, dynamic shared bytes per block, and the
-    blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-    Needs the built library and a card."""
-    lib = _build.library()
-    vals = [ctypes.c_int(0) for _ in range(4)]
-    err = lib.lmpc_solve_geometry(N, torch.empty((), dtype=dtype).element_size(),
-                                  *(ctypes.byref(v) for v in vals))
-    if err == _build.BAD_SHAPE:
-        raise NotImplementedError(f"no lmpc_solve instance for N={N}, {dtype}")
-    if err != 0:
-        raise RuntimeError(f"lmpc_solve geometry query failed: "
-                           f"{_build.error_string(err)} (code {err})")
-    return dict(zip(("threads", "lanes", "shared_bytes", "blocks_per_sm"),
-                    (v.value for v in vals)))
-
+    """Launch geometry of the CUDA instance for horizon N and `dtype`
+    (`_build.launch_geometry`). Needs the built library and a card."""
+    return _build.launch_geometry("lmpc_solve", N,
+                                  torch.empty((), dtype=dtype).element_size())
 
 
 # Per-lane operation counts of the solve (FLOPs; exp, tanh, sin and cos

@@ -24,7 +24,8 @@ import torch
 
 from dart_tpu_torch.ops.kernels import _build
 from dart_tpu_torch.ops.kernels.lanes import (_add_diag, _boxqp2_lanes,
-                                              _gains_lanes, _mm, _mT, _mv)
+                                              _gains_lanes, _mm, _mmc, _mT,
+                                              _mv)
 
 NZ_INSTANCES = (6, 10)
 
@@ -156,14 +157,6 @@ def riccati_backward(A, B, lx, lu, lxx, lux, luu, gx, gxx, V, u_lo, u_hi,
 riccati_backward.launches = 0
 
 
-def _entry_counts(a, b):
-    """(mask, FLOPs per entry) of the product of two structurally sparse
-    matrices: m non-zero pairs into one entry are m multiplies and m - 1
-    adds."""
-    pairs = a.long() @ b.long()
-    return pairs > 0, (2 * pairs - 1).clamp(min=0)
-
-
 def _stage_counts(N: int, A_nz, B_nz) -> int:
     """FLOPs of N backward stages over the structural non-zeros of A (nz,
     nz) and B (nz, 2) (masks; dense where the caller's data is dense), with
@@ -179,20 +172,18 @@ def _stage_counts(N: int, A_nz, B_nz) -> int:
     col = torch.ones(nz, 1, dtype=torch.bool)
     flops = 0
     for _ in range(N):
-        n = int(_entry_counts(A_nz.T, col)[1].sum()) + nz            # Qx
-        n += int(_entry_counts(B_nz.T, col)[1].sum()) + 2            # Qu
-        W, c = _entry_counts(Vxx, A_nz)
-        n += int(c.sum())
-        Qxx, c = _entry_counts(A_nz.T, W)
-        n += int((c[up]).sum()) + int(up.sum())                      # + lxx
+        n = _mmc(A_nz.T, col)[1] + nz                                # Qx
+        n += _mmc(B_nz.T, col)[1] + 2                                # Qu
+        W, c = _mmc(Vxx, A_nz)
+        n += c
+        Qxx, c = _mmc(A_nz.T, W, out=up)
+        n += c + int(up.sum())                                       # + lxx
         n += 2 * int(A_nz.sum())                                     # + reg A
-        Wr = W | A_nz
-        Qux, c = _entry_counts(B_nz.T, Wr)
-        n += int(c.sum()) + 2 * nz                                   # + lux
-        WB, c = _entry_counts(Vxx, B_nz)
-        n += int(c.sum()) + 2 * int(B_nz.sum())                      # + reg B
-        _, c = _entry_counts(B_nz.T, WB | B_nz)
-        n += int(c[up2].sum()) + 3 + 4          # + luu, symmetrise, jitter
+        Qux, c = _mmc(B_nz.T, W | A_nz)
+        n += c + 2 * nz                                              # + lux
+        WB, c = _mmc(Vxx, B_nz)
+        n += c + 2 * int(B_nz.sum())                                 # + reg B
+        n += _mmc(B_nz.T, WB | B_nz, out=up2)[1] + 3 + 4   # + luu, sym, jitter
         # The box QP's nine candidates (~150) and the gains on the free set:
         # h00, h01, h11 and det (9), per column b * f and the 2x2 solve (7).
         n += 150 + 9 + 7 * int(Qux.any(0).sum())
