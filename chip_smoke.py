@@ -1098,11 +1098,11 @@ def _lmpc_check(label: str, got, want, tol: dict) -> float:
 
 # A budget with more alphas than the 4 threads of one axis run at once, so
 # the line search runs them in two chunks and must keep the first-accept
-# order. In float64 it runs on the problem with every friction's eps scaled
-# by 0.3, where stiffer friction rejects more of the first alphas. (At 0.05
-# that problem is ill-conditioned: a 1-ulp change of z0 moves the plain
-# version's float64 V by up to 3.4e-3 in 4 lanes of 4096; at 0.3 by
-# 6.4e-12.)
+# order. No lane of the usual problem takes an alpha past the fourth, so it
+# runs on the problem with every friction's eps scaled by 0.3, where
+# stiffer friction rejects more of the first alphas, and in float64 only:
+# in float32 the lanes that take a late alpha are those whose result a
+# 1-ulp change of z0 moves by ~1e-3 (`lmpc_ulp_witness`, PERF.md).
 LMPC_KW_CHUNKED = {**LMPC_KW, "n_alphas": 6}
 LMPC_NAN_LANE = 21   # not the first lane of a block of 16 or 4 lanes
 
@@ -1113,14 +1113,28 @@ def lmpc_stiff_problem(dtype: torch.dtype, dev: torch.device):
     return args
 
 
+def lmpc_ulp_witness(args, kw: dict) -> tuple[float, float]:
+    """(max |dV|, max |dcost|/(1+|cost|)) of the plain version's own result
+    when z0 moves up by one ulp: no kernel can be held closer to the plain
+    version than this on `args`."""
+    from dart_tpu_torch.ops.kernels.lmpc_solve import lmpc_solve_reference
+
+    V, cost, _ = lmpc_solve_reference(*args, **kw)
+    z0 = args[5]
+    up = torch.nextafter(z0, torch.full_like(z0, float("inf")))
+    V1, cost1, _ = lmpc_solve_reference(*args[:5], up, args[6], **kw)
+    return (float((V1 - V).abs().max()),
+            float(((cost1 - cost).abs() / (1 + cost.abs())).max()))
+
+
 def phase_lmpc(dev: torch.device) -> float:
     """The kernel against its plain version at N = 6, 12 (the main path's
     horizon) and 20, B=4096, 2x3, on ragged batches (B=4000 and B=37, the
     first lanes of the same problem: the plain version is lane by lane, so
-    its B=4096 result holds for them), and with 6 alphas in chunks, in
-    float64 and float32; twice the same call bit for bit; a NaN lane among
-    valid ones; a horizon without an instance. Returns the float32 max |dV|
-    at N=12."""
+    its B=4096 result holds for them), in float64 and float32; with 6
+    alphas in chunks on stiffer friction in float64; twice the same call
+    bit for bit; a NaN lane among valid ones; a horizon without an
+    instance. Returns the float32 max |dV| at N=12."""
     from dart_tpu_torch.ops.kernels.lmpc_solve import (lmpc_solve,
                                                        lmpc_solve_reference)
 
@@ -1144,25 +1158,25 @@ def phase_lmpc(dev: torch.device) -> float:
                             [w[..., :Bp] for w in want], tol)
             if dtype == torch.float32:
                 err32, clean32 = dV, got
-        # float32 on the usual problem: on the stiff one a 1-ulp change of z0
-        # moves the plain version's float32 V by 2.3e-3 and cost by 8.9e-5.
-        stiff = dtype == torch.float64
-        args = (lmpc_stiff_problem(dtype, dev) if stiff
-                else lmpc_problem(LMPC_N, LMPC_N, dtype, dev))
-        want6 = lmpc_solve_reference(*args, **LMPC_KW_CHUNKED)
-        _lmpc_check(f"{name} N={LMPC_N} B={B} 2x6{' stiff' * stiff}",
-                    lmpc_solve(*args, **LMPC_KW_CHUNKED), want6, tol)
-        if dtype == torch.float64:
-            # Lanes whose plain result moves when alphas 5 and 6 are offered
-            # took one of them: the second chunk decided something there.
-            want4 = lmpc_solve_reference(
-                *args, **{**LMPC_KW_CHUNKED, "n_alphas": 4})
-            late = int((want6[0] != want4[0]).flatten(0, 1).any(0).sum())
-            print(f"[lmpc] 2x6 stiff: {late} lanes accept an alpha past the "
-                  f"first 4 in the plain version")
-            if late == 0:
-                raise AssertionError("no lane reached the second chunk of "
-                                     "alphas: the 2x6 case tests nothing")
+
+    args = lmpc_stiff_problem(torch.float64, dev)
+    want6 = lmpc_solve_reference(*args, **LMPC_KW_CHUNKED)
+    _lmpc_check(f"float64 N={LMPC_N} B={B} 2x6 stiff",
+                lmpc_solve(*args, **LMPC_KW_CHUNKED), want6, F64_TOL)
+    # Lanes whose plain result moves when alphas 5 and 6 are offered took
+    # one of them: the second chunk decided something there.
+    want4 = lmpc_solve_reference(*args, **{**LMPC_KW_CHUNKED, "n_alphas": 4})
+    late = int((want6[0] != want4[0]).flatten(0, 1).any(0).sum())
+    dV1, dc1 = lmpc_ulp_witness(args, LMPC_KW_CHUNKED)
+    print(f"[lmpc] 2x6 stiff: {late} lanes accept an alpha past the first 4 "
+          f"in the plain version; a 1-ulp change of z0 moves its max|V| by "
+          f"{dV1:.3e} and its cost by {dc1:.3e} relative")
+    if late == 0:
+        raise AssertionError("no lane reached the second chunk of alphas: "
+                             "the 2x6 case tests nothing")
+    if dV1 > F64_TOL["V"] or dc1 > F64_TOL["cost_rel"]:
+        raise AssertionError("the 2x6 stiff problem is ill-conditioned: the "
+                             "plain version cannot hold the kernel to F64_TOL")
 
     # One lane with a NaN 34-vector, among valid lanes, must report NaN cost
     # and gnorm; every other lane must come out as it did without it.

@@ -609,6 +609,7 @@ lmpc_solve_kernel(const T* __restrict__ p_in, const T* __restrict__ Q_in,
         const int win = __ffs(hit) - 1;
         accepted = true;
         c_best = __shfl_sync(gmask, c_new, win, G);
+        __syncwarp(hmask);   // the winner's trial stores before the copy's loads
 #pragma unroll 1
         for (int e = r; e < L::kTraj; e += R) S(L::kX + e) = S(L::kTrial + e * R + win);
         __syncwarp(hmask);

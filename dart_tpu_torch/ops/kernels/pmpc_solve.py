@@ -24,8 +24,9 @@ import ctypes
 import torch
 
 from dart_tpu_torch.ops.kernels import _build
-from dart_tpu_torch.ops.kernels.lanes import (_add_diag_vec, _boxqp2_lanes,
-                                              _diag_embed, _mv)
+from dart_tpu_torch.ops.kernels.lanes import (_add_diag_vec, _addc,
+                                              _boxqp2_lanes, _diag_embed,
+                                              _mask, _mmc, _mv, _nnz)
 
 
 def _solve_lanes(ad, sd, wdiag, rw, target, z0, V, u_lo, u_hi, dt, g,
@@ -233,70 +234,66 @@ def flops_per_solve(N: int = 15, n_iters: int = 2, n_alphas: int = 3) -> int:
     return rollout + n_iters * (backward + forward + 10)
 
 
-def _sum_count(*terms) -> int:
-    """FLOPs of one entry summing `terms` products, each True where its
-    product is a structural non-zero (m products: m multiplies, m - 1
-    adds)."""
-    m = sum(bool(t) for t in terms)
-    return max(2 * m - 1, 0)
+# The structural non-zeros of Ad = blkdiag([[1, a], [0, b]] x2, diag(1, g5))
+# (its ones multiply nothing) and of B = Sd dc/du (column 0 on rows 0, 1, 4,
+# 5, column 1 on rows 2, 3, 4, 5).
+_AD_NZ = _mask((6, 6), ((0, 0), (0, 1), (1, 1), (2, 2), (2, 3), (3, 3),
+                        (4, 4), (5, 5)))
+_AD_ONE = _mask((6, 6), ((0, 0), (2, 2), (4, 4)))
+_B_NZ = _mask((6, 2), ((0, 0), (1, 0), (4, 0), (5, 0), (2, 1), (3, 1),
+                       (4, 1), (5, 1)))
 
 
 def _backward_counts(N: int, w_nz) -> int:
-    """FLOPs of one backward pass of `_solve_lanes`, product by product as
-    it is written, over the structural non-zeros: Ad's free entries (a, b,
-    g5), B's columns (rows 0, 1, 4, 5 and 2, 3, 4, 5) and the value
-    Hessian's mask, which starts as diag(wdiag != 0) (`w_nz`, six bools)
-    and follows the recursion."""
-    V = [[bool(w_nz[i]) and i == j for j in range(6)] for i in range(6)]
-    vx = [bool(w) for w in w_nz]
-    c0, c1 = (0, 1, 4, 5), (2, 3, 4, 5)          # B's two columns' rows
+    """FLOPs of one backward pass of `_solve_lanes` over the structural
+    non-zeros of Ad, B and the value function, whose Hessian starts as
+    diag(wdiag != 0) (`w_nz`, six bools) and follows the recursion. Each
+    value is computed once: the symmetric results (Qxx, Quu, the new Vxx)
+    count their upper triangle."""
+    AdT, oneT, BT = _AD_NZ.T, _AD_ONE.T, _B_NZ.T
+    up = torch.triu(torch.ones(6, 6, dtype=torch.bool))
+    up2 = torch.triu(torch.ones(2, 2, dtype=torch.bool))
+    col = torch.ones(2, 1, dtype=torch.bool)
+    lx = torch.tensor([bool(w) for w in w_nz])[:, None]
+    Vx, Vxx = lx, torch.diag(lx[:, 0])
+    # Quu[i][j] = b_i'(Vxx b_j) on the upper triangle reads Vxx b_j on the
+    # rows of b_0 .. b_j.
+    need = _B_NZ.cumsum(1) > 0
     total = 0
     for _ in range(N):
         n = 2 + 2 + 8 + 6 + 6 + 3                 # gc, m2g, p/q, e, lx, lu
-        # Qx = lx + Ad'Vx: rows 1 and 3 add a Vx0 + b Vx1 (a Vx2 + b Vx3),
-        # row 5 g Vx5, rows 0, 2, 4 Vx itself.
-        Qx = [bool(w_nz[j]) or vx[j] or (j in (1, 3) and vx[j - 1])
-              for j in range(6)]
-        n += sum(_sum_count(vx[j - 1], vx[j]) + 1 if j in (1, 3)
-                 else 2 * int(vx[j]) if j == 5 else int(vx[j])
-                 for j in range(6))
-        n += sum(_sum_count(True, *(vx[i] for i in c)) for c in (c0, c1))
-        # W = Vxx Ad: columns 0, 2, 4 copy; 1, 3: a V0 + b V1; 5: g V5.
-        W = [[V[i][0], V[i][0] or V[i][1], V[i][2], V[i][2] or V[i][3],
-              V[i][4], V[i][5]] for i in range(6)]
-        n += sum(_sum_count(V[i][j - 1], V[i][j]) for i in range(6)
-                 for j in (1, 3)) + sum(V[i][5] for i in range(6))
-        # Qxx = Ad'W + diag(2w): rows 0, 2, 4 copy; 1, 3 and 5 likewise.
-        Qxx = [W[0], [W[0][j] or W[1][j] for j in range(6)], W[2],
-               [W[2][j] or W[3][j] for j in range(6)], W[4], W[5]]
-        n += sum(_sum_count(W[i - 1][j], W[i][j]) for i in (1, 3)
-                 for j in range(6)) + sum(W[5]) + 6
-        Qxx = [[Qxx[i][j] or (i == j and bool(w_nz[i])) for j in range(6)]
-               for i in range(6)]
-        Qux = [[any(W[i][j] for i in c) for j in range(6)] for c in (c0, c1)]
-        n += sum(_sum_count(*(W[i][j] for i in c)) for c in (c0, c1)
-                 for j in range(6))
-        # Quu through t0 = Vxx b0 (6 rows), t1 = Vxx b1 (rows 2..5).
-        t0 = [any(V[j][i] for i in c0) for j in range(6)]
-        t1 = [any(V[j][i] for i in c1) for j in range(6)]
-        n += sum(_sum_count(*(V[j][i] for i in c0)) for j in range(6))
-        n += sum(_sum_count(*(V[j][i] for i in c1)) for j in (2, 3, 4, 5))
-        n += 2 + _sum_count(*(t0[i] for i in c0)) + 1
-        n += _sum_count(*(t0[i] for i in c1)) + _sum_count(
-            *(t1[i] for i in c1)) + 1
+        AVx, c = _mmc(AdT, Vx, unit=oneT)
+        Qx, c2 = _addc(lx, AVx)
+        n += c + c2
+        n += _mmc(BT, Vx)[1] + 2                  # Qu = lu + B'Vx
+        W, c = _mmc(AdT, Vxx, unit=oneT)          # (Vxx Ad)' = Ad'Vxx
+        W = W.T
+        n += c
+        Qxx, c = _mmc(AdT, W, unit=oneT, out=up)
+        Qxx, c2 = _addc(Qxx, torch.diag(lx[:, 0]))   # + diag(2 wdiag)
+        n += c + c2
+        Qux, c = _mmc(BT, W)
+        n += c
+        t, c = _mmc(Vxx, _B_NZ, out=need)
+        n += c + _mmc(BT, t, out=up2)[1] + 2 + 2   # + rdiag on the diagonal
         # The box QP's nine candidates (~150); the gains: h00, h01, h11,
-        # det, 1/det (12), per column b0, b1 and the two solves (10).
-        n += 150 + 12 + 10 * sum(Qux[0][j] or Qux[1][j] for j in range(6))
-        kc = [Qux[0][j] or Qux[1][j] for j in range(6)]
-        # Vx = Qx + K'(Quu d + Qu) + Qux'd: r0, r1 (8), 8 per entry.
-        n += 8 + 8 * 6
-        vx = [Qx[j] or kc[j] for j in range(6)]
-        # Vxx' = Qxx + K'Quu K + K'Qux + (K'Qux)' on the upper triangle:
-        # kq (6 per column of K), then 12 per entry.
-        n += 6 * sum(kc)
-        V = [[Qxx[i][j] or (kc[i] and kc[j]) for j in range(6)]
-             for i in range(6)]
-        n += 12 * sum(V[i][j] for i in range(6) for j in range(i, 6))
+        # det, 1/det (12), per column of K b0, b1 and the two solves (10).
+        kc = Qux.any(0)
+        n += 150 + 12 + 10 * int(kc.sum())
+        KT = kc[:, None].expand(6, 2)
+        # Vx = Qx + K'(Quu d + Qu) + Qux'd, with r = Quu d + Qu (8).
+        Kr, c = _mmc(KT, col)
+        Qd, c2 = _mmc(Qux.T, col)
+        Vx, c3 = _addc(Qx, Kr, Qd)
+        n += 8 + c + c2 + c3
+        # Vxx' = Qxx + (K'Quu) K + K'Qux + (K'Qux)' on the upper triangle.
+        kq, c = _mmc(KT, torch.ones(2, 2, dtype=torch.bool))
+        S, c2 = _mmc(kq, KT.T, out=up)
+        M, c3 = _mmc(KT, Qux)
+        n += c + c2 + c3 + _nnz(M & up.T)        # K'Qux on both triangles
+        U, c = _addc(Qxx & up, S & up, M & up, M.T & up)
+        n += c
+        Vxx = U | U.T
         total += n
     return total
 
@@ -309,17 +306,15 @@ _ROLLOUT, _TRIAL, _ACCEPT = 50, 75, 80
 
 
 def work(N: int, n_iters: int, B: int, trials: int, itemsize: int,
-         w_nz=None) -> tuple[int, int]:
+         w_nz) -> tuple[int, int]:
     """(FLOPs, bytes) of one call over B lanes that ran `trials`
     line-search trials in all (`stats["trials"].sum()` of the plain
     version), for the roofline bound. FLOPs: the rollout and the trials as
     `flops_per_solve` counts them (the trials as run), and each backward
     pass over its structural non-zeros (`_backward_counts`; `w_nz` the
-    six bools wdiag != 0 of the call's lanes, all True when not given).
-    Bytes: every input read once (ad3, sd4, wdiag, rw, target, z0, V0),
-    every output written once (V, cost, gnorm)."""
-    if w_nz is None:
-        w_nz = [True] * 6
+    six bools wdiag != 0 of the call's lanes). Bytes: every input read
+    once (ad3, sd4, wdiag, rw, target, z0, V0), every output written once
+    (V, cost, gnorm)."""
     back = _backward_counts(N, w_nz)
     flops = B * (_ROLLOUT * N + 23 + n_iters * (back + 10)) \
         + trials * (_TRIAL * N + _ACCEPT)

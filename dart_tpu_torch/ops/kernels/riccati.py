@@ -199,22 +199,18 @@ def _stage_counts(N: int, A_nz, B_nz) -> int:
     return flops
 
 
-def work(N: int, nz: int, B: int, itemsize: int, A_nz=None,
-         B_nz=None) -> tuple[int, int]:
+def work(N: int, nz: int, B: int, itemsize: int) -> tuple[int, int]:
     """(FLOPs, bytes) of one call at these shapes, for the roofline bound.
 
     Bytes: every input read once, every output written once. Per lane and
     stage that is 2 nz^2 + 5 nz + 8 values in (A, B, lx, lu, lxx, lux,
     luu, V) and 2 + 2 nz out (D, K); per lane once nz + nz^2 (gx, gxx) and
-    one reg. FLOPs: `_stage_counts` over the structural non-zeros of A and
-    B (`A_nz` (nz, nz) and `B_nz` (nz, 2) boolean masks, dense when not
-    given), each value computed once.
+    one reg. FLOPs: `_stage_counts` over dense A and B (the callers'
+    linearisations fill them), each value computed once.
     """
     per_stage_in = 2 * nz * nz + 5 * nz + 8
     per_stage_out = 2 + 2 * nz
     values = B * (N * (per_stage_in + per_stage_out) + nz + nz * nz + 1)
-    if A_nz is None:
-        A_nz = torch.ones(nz, nz, dtype=torch.bool)
-    if B_nz is None:
-        B_nz = torch.ones(nz, 2, dtype=torch.bool)
-    return B * _stage_counts(N, A_nz, B_nz), values * itemsize
+    flops = _stage_counts(N, torch.ones(nz, nz, dtype=torch.bool),
+                          torch.ones(nz, 2, dtype=torch.bool))
+    return B * flops, values * itemsize

@@ -175,12 +175,18 @@ def test_trial_count_and_work():
 def test_work_counts_the_structural_nonzeros():
     """The backward pass's count follows the value Hessian's mask: below
     the dense hand count of `flops_per_solve` (1190 per stage), and lower
-    still where wdiag's zeros keep states 4 and 5 out of the value."""
+    still where wdiag's zeros keep states 4 and 5 out of the value. With
+    wdiag = 0 the value stays 0 and a stage costs only its fixed work:
+    27 element-wise (B's entries, e, lx, lu), lu's and Quu's diagonal adds
+    (2 + 4), the box QP (150), the gains' determinant (12) and Quu d + Qu
+    (8)."""
     dense = tps._backward_counts(N, [True] * 6)
     assert dense < 1190 * N
     assert tps._backward_counts(N, [True, True, True, True, False,
                                     False]) < dense
-    assert tps.work(N, 2, B, 0, 4)[0] == B * (50 * N + 23 + 2 * (dense + 10))
+    assert tps._backward_counts(N, [False] * 6) == 203 * N
+    assert tps.work(N, 2, B, 0, 4, [True] * 6)[0] == \
+        B * (50 * N + 23 + 2 * (dense + 10))
 
 
 def test_cpu_tensors_take_plain_path_without_launching():

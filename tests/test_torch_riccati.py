@@ -212,4 +212,5 @@ def test_work_counts_each_input_and_output_once(nz):
     written = (6 * nz ** 3 + 21 * nz * nz + 40 * nz + 170) * N * B
     assert 2 * nz ** 3 * N * B < flops < written
     diag = torch.eye(nz, dtype=torch.bool)
-    assert tric.work(N, nz, B, 4, A_nz=diag)[0] < flops
+    Bm = torch.ones(nz, 2, dtype=torch.bool)
+    assert B * tric._stage_counts(N, diag, Bm) < flops
