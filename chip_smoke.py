@@ -8,11 +8,15 @@ Phases, each of which raises on failure (so the script exits non-zero):
 2. build: compile `dart_tpu_torch/csrc/*.cu` with nvcc (one process per
    source, all at once), print the seconds, registers and stack frames;
 3. pmpc: the PMPC whole-solve kernel against its plain PyTorch version at
-   B=4096, N=15, 2 iterations x 3 alphas, in float64 and float32, plus one
-   lane with broken Ad structure that must come back +inf;
+   B=4096, N=15, 2 iterations x 3 alphas, in float64 and float32; twice
+   the same call and a ragged batch (B=37, the first lanes of the same
+   problem) must give the full batch's lanes bit for bit; one lane with
+   broken Ad structure must come back +inf (the kernel's own guard);
 4. riccati: the Riccati backward kernel against its plain version at
-   B=4096, nz=6 (N=15, 20) and nz=10 (N=20), float64 and float32, and a
-   tight box whose steps must stay inside it;
+   B=4096, nz=6 (N=15, 20) and nz=10 (N=20), float64 and float32; at N=20
+   twice the same call and ragged batches (B=4000 and B=37) must give the
+   full batch's lanes bit for bit; a tight box whose steps must stay
+   inside it;
 5. rmpc: the RMPC whole-solve kernel against its plain version at B=4096,
    N=20, 6 iterations x 4 alphas x 3 AL rounds, on ragged batches (B=4000
    and B=37), at N=6, and with 6 alphas (two chunks of the kernel's 4
@@ -51,11 +55,12 @@ Phases, each of which raises on failure (so the script exits non-zero):
    closed-form and autodiff linearisation, on the Riccati kernel at nz=10;
 13. times (printed, not gated): each kernel and its plain version per call
    (CUDA events), each kernel's device time per launch (torch.profiler),
-   the closed-loop steps (host clock), and `rmpc_solve`'s and
-   `lmpc_solve`'s launch geometry (threads, lanes and shared bytes per
-   block, resident blocks per SM).
+   the closed-loop steps (host clock), and each kernel's launch geometry
+   (threads, lanes and shared bytes per block, resident blocks per SM).
 `profile`, run only when named, traces closed-loop steps with
-torch.profiler and prints the device busy time per step and its rows.
+torch.profiler and prints the device busy time per step and its rows;
+`scan`, likewise, prints the Riccati and PMPC kernels' device time per
+launch against horizon, budget and batch.
 The last three lines are the card, the kernels' JSON record and the device
 JSON.
 """
@@ -165,6 +170,9 @@ def kernel_inputs(dtype: torch.dtype, dev: torch.device):
     return [bl(Ad), bl(Sd), bl(wdiag), rw, bl(targets), bl(z0), bl(V0)]
 
 
+PMPC_RAGGED = 37   # 4 blocks of 8 lanes and 5 more
+
+
 def phase_kernel_vs_plain(dev: torch.device) -> float:
     """Returns the float32 max |dV| (the main path's working type)."""
     from dart_tpu_torch.ops.kernels.pmpc_solve import (pmpc_solve,
@@ -196,6 +204,22 @@ def phase_kernel_vs_plain(dev: torch.device) -> float:
             raise AssertionError(f"kernel disagrees with plain in {name}")
         if float(V.abs().max()) > 0.6 + 1e-6:
             raise AssertionError("kernel V outside the box")
+        again = pmpc_solve(*args, **kw)
+        if not all(bool(torch.equal(x, y)) for x, y in zip((V, cost, gn),
+                                                           again)):
+            raise AssertionError(f"pmpc kernel not deterministic ({name})")
+        # A ragged batch: its lanes must come out as the same lanes of the
+        # full batch, bit for bit (a lane's work does not depend on B).
+        sub = pmpc_solve(*(a[..., :PMPC_RAGGED].contiguous() for a in args),
+                         **kw)
+        same = all(bool(torch.equal(x, y[..., :PMPC_RAGGED]))
+                   for x, y in zip(sub, (V, cost, gn)))
+        print(f"[kernel-vs-plain] {name}: a second call bit for bit: True; "
+              f"B={PMPC_RAGGED} as the first {PMPC_RAGGED} lanes of B={B}: "
+              f"{same}")
+        if not same:
+            raise AssertionError(f"pmpc kernel at B={PMPC_RAGGED} differs "
+                                 f"from the full batch ({name})")
         if dtype == torch.float32:
             err32 = dV
 
@@ -364,6 +388,7 @@ def phase_times(dev: torch.device, card: str) -> dict:
           f"device per launch (profiler) {dev_ms:.4f} ms [{card}]")
     print(f"[times] pmpc_solve work: {flops} FLOPs ({trials} line-search "
           f"trials), {nbytes} bytes; bound {bound_ms:.6f} ms by {bound_by}")
+    print_geometry("pmpc_solve", kps.launch_geometry, N)
 
     ctlr, targets, _, weights, params, plant = main_path_setup(dev)
     solve_fn = loop.pmpc_solve_fn(ctlr, targets, params, weights)
@@ -434,6 +459,27 @@ def riccati_problem(seed: int, N_: int, nz: int, dtype: torch.dtype,
         reg, dtype=dtype, device=dev)
 
 
+def riccati_ragged(args, lo, hi, reg, full, label: str) -> None:
+    """A second call at B=4096 must agree bit for bit, and ragged batches
+    (B=4000 and B=37, the first lanes of the same problem) must give the
+    full batch's lanes bit for bit (a lane's work does not depend on B);
+    the full batch is held to the plain version above."""
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+
+    again = riccati_backward(*args, lo, hi, reg)
+    if not all(bool(torch.equal(x, y)) for x, y in zip(full, again)):
+        raise AssertionError(f"riccati kernel not deterministic ({label})")
+    for Bp in (4000, 37):
+        sub = riccati_backward(*(a[..., :Bp].contiguous() for a in args), lo,
+                               hi, reg[:Bp].contiguous())
+        if not all(bool(torch.equal(x, y[..., :Bp]))
+                   for x, y in zip(sub, full)):
+            raise AssertionError(f"riccati kernel at B={Bp} differs from the "
+                                 f"full batch ({label})")
+    print(f"[riccati] {label}: a second call bit for bit, and B=4000 and "
+          f"B=37 as the full batch's first lanes, bit for bit")
+
+
 def phase_riccati(dev: torch.device) -> float:
     """Returns the float32 max |dD| at the main path's shape (nz=6, N=20
     is what the time phase measures; every case must pass)."""
@@ -454,6 +500,9 @@ def phase_riccati(dev: torch.device) -> float:
                                      "kernel output not finite")
             dD, dK = (D - D_p).abs(), (K - K_p).abs()
             name = str(dtype).replace("torch.", "")
+            if N_ == 20:
+                riccati_ragged(args, lo, hi, reg, (D, K),
+                               f"nz={nz} N={N_} {name}")
             msg = (f"[riccati] nz={nz} N={N_} {name}: max|dD| "
                    f"{float(dD.max()):.3e}, max|dK| {float(dK.max()):.3e}")
             if dtype == torch.float64:
@@ -926,10 +975,11 @@ def phase_rescue(dev: torch.device) -> int:
     return ric
 
 
-def print_geometry(name: str, launch_geometry, N_: int) -> None:
+def print_geometry(name: str, launch_geometry, size: int,
+                   size_name: str = "N") -> None:
     for dtype in (torch.float32, torch.float64):
-        geo = launch_geometry(N_, dtype)
-        print(f"[times] {name} launch geometry N={N_} "
+        geo = launch_geometry(size, dtype)
+        print(f"[times] {name} launch geometry {size_name}={size} "
               f"{str(dtype).replace('torch.', '')}: {geo['threads']} threads "
               f"and {geo['lanes']} lanes per block, {geo['shared_bytes']} "
               f"dynamic shared bytes per block, {geo['blocks_per_sm']} blocks "
@@ -983,6 +1033,8 @@ def phase_kernel_times(dev: torch.device, card: str) -> dict:
           f"launch (profiler) {dev_ms:.4f} ms [{card}]")
     print(f"[times] riccati_backward work: {flops} FLOPs, {nbytes} bytes; "
           f"bound {bound_ms:.6f} ms by {bound_by}")
+    for nz in kric.NZ_INSTANCES:
+        print_geometry("riccati", kric.launch_geometry, nz, "nz")
     out["riccati_backward"] = {"ms": ms, "plain_ms": plain_ms,
                                "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -1448,10 +1500,42 @@ def phase_profile(dev: torch.device, card: str) -> None:
     traced_steps(lmpc_step, 20, card, "LMPC closed loop, steps 200-220")
 
 
+def phase_scan(dev: torch.device, card: str) -> None:
+    """Device ms per launch (torch.profiler), float32, of `riccati_backward`
+    against the horizon and the batch and of `pmpc_solve` against its
+    budget and the batch: the slope over N is a stage's cost, and a launch
+    as long at B=512 as at B=4096 is bound by each warp's chain of
+    dependent instructions, not by the card's throughput."""
+    from dart_tpu_torch.ops.kernels.pmpc_solve import pmpc_solve
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+
+    for nz, N_, Bp in ((6, 10, B), (6, 20, B), (6, 40, B), (6, 20, 512),
+                       (10, 20, 4000)):
+        args, lo, hi, reg = riccati_problem(N_, N_, nz, torch.float32, dev)
+        sub = [a[..., :Bp].contiguous() for a in args]
+        reg = reg[:Bp].contiguous()
+        riccati_backward(*sub, lo, hi, reg)
+        ms = device_ms(lambda: riccati_backward(*sub, lo, hi, reg), 20,
+                       "riccati")
+        print(f"[scan] riccati_backward nz={nz} N={N_} B={Bp} float32: "
+              f"{ms:.4f} ms per launch [{card}]")
+    args = kernel_inputs(torch.float32, dev)
+    for (it, na), Bp in (((1, 1), B), ((2, 1), B), ((2, 3), B), ((4, 3), B),
+                         ((2, 3), 512)):
+        sub = [a[..., :Bp].contiguous() for a in args]
+        kw = dict(dt=DT, n_iters=it, n_alphas=na)
+        pmpc_solve(*sub, **kw)
+        ms = device_ms(lambda: pmpc_solve(*sub, **kw), 20, "pmpc_solve")
+        print(f"[scan] pmpc_solve N={N} {it}x{na} B={Bp} float32: {ms:.4f} "
+              f"ms per launch [{card}]")
+
+
 PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
           "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "times")
-# Run only when named: the device-time breakdown behind PERF.md section 5.
-EXTRA_PHASES = ("profile",)
+# Run only when named: the device-time breakdown behind PERF.md section 5,
+# and the Riccati and PMPC kernels' device time against horizon, budget and
+# batch.
+EXTRA_PHASES = ("profile", "scan")
 
 
 def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
@@ -1480,6 +1564,8 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
         res["times"] = phase_kernel_times(dev, card)
     elif ph == "profile":
         phase_profile(dev, card)
+    elif ph == "scan":
+        phase_scan(dev, card)
 
 
 def main(argv: list[str]) -> int:

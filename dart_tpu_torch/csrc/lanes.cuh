@@ -350,6 +350,89 @@ __device__ __forceinline__ void boxqp2_group(unsigned mask, int width, int r,
   f1_out = (w % 3 == 0) ? T(1) : T(0);
 }
 
+// boxqp2 over a group of W threads (W a power of two, 4 <= W <= 32): thread
+// r evaluates the candidates i = r, r + W, ... (i = 3 s0 + s1, boxqp2's
+// order) with boxqp2's expressions, the divisions of a free dimension
+// taken by selects rather than branches (a candidate without one divides
+// and drops the quotient, and a slot whose candidates are all bound
+// divides nothing), every thread takes the first minimum of the nine masked
+// objectives in boxqp2's order, and the winner's clipped step comes from
+// its thread. The result is boxqp2's in every thread of the group.
+template <int W, typename T>
+__device__ __forceinline__ void boxqp2_dealt(unsigned mask, int r, T q00, T q01,
+                                             T q11, T Qu0, T Qu1, T lo0, T lo1,
+                                             T hi0, T hi1, T& d0_out, T& d1_out,
+                                             T& f0_out, T& f1_out) {
+  constexpr int kSlots = (9 + W - 1) / W;
+  const T tol = T(1e-9);
+  const T det = guard_tiny(q00 * q11 - q01 * q01);
+  T objm[kSlots], d0c[kSlots], d1c[kSlots];
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int i = (r + W * j < 9) ? r + W * j : 8;
+    const int s0 = i / 3, s1 = i % 3;
+    const bool fr0 = s0 == 0, fr1 = s1 == 0;
+    const T c0 = (s0 == 1) ? lo0 : hi0;
+    const T c1 = (s1 == 1) ? lo1 : hi1;
+    T d0 = c0, d1 = c1;
+    if (W * j <= 6) {   // some candidate of the slot has a free dimension
+      const bool both = fr0 && fr1;
+      const T x0 = -(both ? q11 * Qu0 - q01 * Qu1 : Qu0 + q01 * c1)
+                   / (both ? det : nan_max(q00, T(1e-30)));
+      const T x1 = -(both ? -q01 * Qu0 + q00 * Qu1 : Qu1 + q01 * c0)
+                   / (both ? det : nan_max(q11, T(1e-30)));
+      d0 = fr0 ? x0 : c0;
+      d1 = fr1 ? x1 : c1;
+    }
+    const T g0 = q00 * d0 + q01 * d1 + Qu0;
+    const T g1 = q01 * d0 + q11 * d1 + Qu1;
+    const bool ok0 = fr0 ? (d0 >= lo0 - tol && d0 <= hi0 + tol)
+                   : (s0 == 1) ? (g0 >= -tol) : (g0 <= tol);
+    const bool ok1 = fr1 ? (d1 >= lo1 - tol && d1 <= hi1 + tol)
+                   : (s1 == 1) ? (g1 >= -tol) : (g1 <= tol);
+    const T obj = T(0.5) * (d0 * g0 + d1 * g1) + T(0.5) * (Qu0 * d0 + Qu1 * d1);
+    objm[j] = (ok0 && ok1) ? obj : T(1e30);
+    d0c[j] = clip(d0, lo0, hi0);
+    d1c[j] = clip(d1, lo1, hi1);
+  }
+  int w = 0;
+  T best = __shfl_sync(mask, objm[0], 0, W);
+#pragma unroll
+  for (int i = 1; i < 9; ++i) {
+    const T o = __shfl_sync(mask, objm[i / W], i % W, W);
+    if (o < best) {
+      best = o;
+      w = i;
+    }
+  }
+  const int slot = w / W, src = w % W;
+  T s0v = d0c[0], s1v = d1c[0];
+#pragma unroll
+  for (int j = 1; j < kSlots; ++j) {
+    s0v = (slot == j) ? d0c[j] : s0v;
+    s1v = (slot == j) ? d1c[j] : s1v;
+  }
+  d0_out = __shfl_sync(mask, s0v, src, W);
+  d1_out = __shfl_sync(mask, s1v, src, W);
+  f0_out = (w / 3 == 0) ? T(1) : T(0);
+  f1_out = (w % 3 == 0) ? T(1) : T(0);
+}
+
+// Row i and column j >= i of entry e of an NZ x NZ upper triangle in row
+// order, by selects.
+template <int NZ>
+__device__ __forceinline__ void tri_ij(int e, int& i, int& j) {
+  int row = 0, rem = e;
+#pragma unroll
+  for (int q = 0; q < NZ; ++q) {
+    const bool next = rem >= NZ - row;
+    rem = next ? rem - (NZ - row) : rem;
+    row = next ? row + 1 : row;
+  }
+  i = row;
+  j = row + rem;
+}
+
 // ---------------------------------------------------------------------------
 // Block helpers: a lane's algebra split into independent 4-state blocks
 // (the LMPC model's x and y axes).

@@ -1,5 +1,6 @@
-// Batched box-DDP Riccati backward pass, one thread per scenario lane, for
-// Hopper (sm_90a).
+// Batched box-DDP Riccati backward pass, one scenario lane per group of
+// G = 8 threads, each stage's inputs staged in shared memory by
+// asynchronous copies issued stages ahead, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dart_tpu/ops/pallas/riccati.py::_backward_kernel
 // (riccati_backward_pallas) and computes what it computes, stage for stage:
@@ -10,32 +11,65 @@
 // The plain PyTorch version is
 // dart_tpu_torch/ops/kernels/riccati.py::_backward_lanes.
 //
-// Layout: every array is batch-last, element (i, lane) at i * B + lane, so
-// neighbouring threads touch neighbouring addresses and loads coalesce.
-// The state size NZ is a template parameter (6: PMPC and the augmented
-// RMPC state; 10: LMPC's augmented state); the horizon N is a runtime loop.
+// Layout: every global array is batch-last, element (i, lane) at
+// i * B + lane. The state size NZ is a template parameter (6: PMPC and the
+// augmented RMPC state; 10: LMPC's augmented state); the horizon N is a
+// runtime loop.
 //
 // What bounds it on this card, and what the design does about it:
-// - It is memory-bound. Per lane and stage it reads 2 NZ^2 + 5 NZ + 8
-//   values (A, B, the cost expansion, V) and writes 2 + 2 NZ (D, K): 110 in
-//   and 14 out at NZ = 6, against ~2,500 FLOPs, so ~5 FLOPs per byte in
-//   float32 where the card needs ~20 to be compute-bound. Each value is read
-//   exactly once, coalesced; nothing is staged through shared memory
-//   because nothing is reused across lanes.
-// - The batch is small against the card: B = 4096 lanes are 4096 threads.
-//   Blocks of 32 threads give 128 blocks, so every SM but four holds one
-//   warp; with one warp per SM little memory latency is hidden. A later PR
-//   could split a lane's stage work across a few threads to put more loads
-//   in flight.
-// - Vxx, Qxx and a stage's A stay per thread (3 NZ^2 values): in registers
-//   at NZ = 6, partly in local memory at NZ = 10.
+// - By its bytes it is memory-bound: per lane and stage it reads 2 NZ^2 +
+//   5 NZ + 8 values (A, B, the cost expansion, V) and writes 2 + 2 NZ (D,
+//   K), 110 in and 14 out at NZ = 6, against ~1,700 FLOPs: ~4 FLOPs per
+//   byte in float32, where the card needs ~20 to be compute-bound. Tensor
+//   cores do not apply: the algebra is a lane's own 2x2 ... 10x10 products.
+// - So the bytes are taken off the stage's chain. A block holds LB = 8
+//   lanes; its threads copy each stage's rows for the 8 lanes (a run of 8
+//   values per row) into a ring of kStages stage tiles in shared memory
+//   with cp.async (<cuda_pipeline.h>), kStages - 1 = 3 stages ahead of the
+//   stage being computed (2 for NZ = 10 in double, whose deeper ring would
+//   leave fewer than three blocks on an SM). Where every row starts 16-byte
+//   aligned (B a multiple of 4 in float, 2 in double; the arrays aligned),
+//   a copy moves 16 bytes and each thread's share of a stage is a fixed
+//   list of copies whose addresses are formed once; otherwise (B = 37 gives
+//   148-byte rows) a copy moves one element. Lanes past the batch's end
+//   copy lane B - 1 and write nothing. TMA is not used: its row strides
+//   must be multiples of 16 bytes, and the element path covers the rest.
+// - What is left is each warp's chain of dependent instructions through a
+//   stage: on the H100 a launch at B = 512 takes three quarters of its
+//   time at B = 4096, and the copies have landed when a stage waits for them
+//   (PERF.md, section 6). So a stage's work is spread over G = 8 threads per
+//   lane: B = 4096 lanes are 512 two-warp blocks, ~7.8 warps per SM (one
+//   thread per lane gave one warp per SM; G = 4 was a quarter slower at
+//   NZ = 6 and half as fast at NZ = 10). Thread r owns column r (and r + 8) of
+//   Vxx A, (Vxx + reg I) A, Qxx and Qux and the entries of K and Qx that
+//   follow; the 2 NZ rows of (Vxx + reg I) B, the four entries of Quu, the
+//   box QP's nine candidates (boxqp2_dealt: a free dimension's division by
+//   selects, not branches) and the new Vxx's NZ (NZ + 1) / 2 unique
+//   entries are dealt round the group. The
+//   lane's Vxx, Qxx, Qux, K and the new Vx live in shared memory; every
+//   thread holds Vx, Qu, Quu, the box QP's step and free set bit for bit,
+//   so the group branches alike. Work for a runtime column or entry is
+//   indexed, not branched on, each section's stores come after its loads,
+//   and every thread runs every stage, so the warp is converged at each
+//   exchange and its shuffles and __syncwarp name the whole warp.
+// - D and K go to a small output tile in shared memory and leave at the
+//   next stage as runs of 8 lanes per row.
+// - No NZ^2 array is held per thread; ptxas still spills a few hundred
+//   bytes at NZ = 10 (PERF.md, section 6).
 //
-// Numerics: IEEE division, no --use_fast_math. nvcc's default FMA
-// contraction is left on, so float32 results differ from the plain version
-// by a few ulps per operation; chip_smoke.py states the tolerance. Max and
-// clip propagate NaN (lanes.cuh).
+// Numerics: IEEE division, no --use_fast_math. Every entry keeps the plain
+// version's order of summation (sums over t = 0 .. NZ - 1, as _mm does),
+// reg only on the diagonal of the Vxx that meets Qux and Quu, the 0.5 (Q +
+// Q^T) symmetrisations and the 1e-9 jitter. nvcc's default FMA contraction
+// is left on, so float32 results differ from the plain version by a few
+// ulps per operation; chip_smoke.py states the tolerance. Max and clip
+// propagate NaN (lanes.cuh).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
 
 #include "lanes.cuh"
 
@@ -43,9 +77,70 @@ namespace {
 
 using namespace dart;
 
-constexpr int kThreads = 32;
+constexpr int G = 8;               // threads per lane
+constexpr int LB = 8;              // lanes per block
+constexpr int kThreads = G * LB;   // threads per block
 
-template <typename T, int NZ>
+// Rows of one stage's inputs, and of the per-lane scratch, as row offsets;
+// row rho of lane slot l sits at rho * LB + l of its region.
+template <int NZ>
+struct Rows {
+  static constexpr int kA = 0;                 // A[s][j] at s * NZ + j
+  static constexpr int kB = kA + NZ * NZ;      // B[s][w] at s * 2 + w
+  static constexpr int kLx = kB + 2 * NZ;
+  static constexpr int kLu = kLx + NZ;
+  static constexpr int kLxx = kLu + 2;
+  static constexpr int kLux = kLxx + NZ * NZ;  // lux[u][j] at u * NZ + j
+  static constexpr int kLuu = kLux + 2 * NZ;
+  static constexpr int kV = kLuu + 4;
+  static constexpr int kStage = kV + 2;        // 2 NZ^2 + 5 NZ + 8
+  // Scratch: the value Hessian, this stage's Qxx, Qux, K, (Vxx + reg I) B
+  // and the new Vx.
+  static constexpr int kVxx = 0;
+  static constexpr int kQxx = kVxx + NZ * NZ;
+  static constexpr int kQux = kQxx + NZ * NZ;
+  static constexpr int kK = kQux + 2 * NZ;
+  static constexpr int kNr = kK + 2 * NZ;      // nr[w][t] at w * NZ + t
+  static constexpr int kVx = kNr + 2 * NZ;
+  static constexpr int kScratch = kVx + NZ;
+  static constexpr int kOut = 2 + 2 * NZ;      // D, then K[u][j]
+  // Per-thread slot counts: columns, (w, t) pairs, upper-triangle entries.
+  static constexpr int kCols = (NZ + G - 1) / G;
+  static constexpr int kPairs = (2 * NZ + G - 1) / G;
+  static constexpr int kUnique = NZ * (NZ + 1) / 2;
+  static constexpr int kTri = (kUnique + G - 1) / G;
+};
+
+// Stage k's rows [k NROWS, (k + 1) NROWS) of a batch-last array, for the
+// block's LB lanes, into dst[row * LB + lane slot] by cp.async, one element
+// per copy: element e = tid + kThreads q of the tile is row e / LB of lane
+// slot tid % LB, which copies lane copy_lane (B - 1 past the batch's end).
+// Used where the rows do not all start 16-byte aligned.
+template <int NROWS, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, const T* src, int k,
+                                          size_t sB, int tid, int copy_lane) {
+  const size_t first = static_cast<size_t>(k) * NROWS;
+#pragma unroll
+  for (int q = 0; q < (NROWS * LB + kThreads - 1) / kThreads; ++q) {
+    const int row = (tid + q * kThreads) / LB;
+    if (row < NROWS)
+      __pipeline_memcpy_async(dst + row * LB + tid % LB,
+                              src + (first + row) * sB + copy_lane, sizeof(T));
+  }
+}
+
+// The same rows of a batch-last (NROWS, B) array by plain loads.
+template <int NROWS, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, size_t sB,
+                                          int tid, int copy_lane) {
+#pragma unroll
+  for (int q = 0; q < (NROWS * LB + kThreads - 1) / kThreads; ++q) {
+    const int row = (tid + q * kThreads) / LB;
+    if (row < NROWS) dst[row * LB + tid % LB] = src[row * sB + copy_lane];
+  }
+}
+
+template <typename T, int NZ, int S>
 __global__ void __launch_bounds__(kThreads)
 riccati_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
                const T* __restrict__ lx, const T* __restrict__ lu,
@@ -53,183 +148,385 @@ riccati_kernel(const T* __restrict__ A, const T* __restrict__ Bm,
                const T* __restrict__ luu, const T* __restrict__ gx,
                const T* __restrict__ gxx, const T* __restrict__ V,
                const T* __restrict__ reg_in, T* __restrict__ D,
-               T* __restrict__ K, int B, int N, T lo0, T lo1, T hi0, T hi1) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
+               T* __restrict__ K, int B, int N, T lo0, T lo1, T hi0, T hi1,
+               bool vec) {
+  using R = Rows<NZ>;
+  const int tid = threadIdx.x;
+  const int r = tid % G;            // the thread's place in its group
+  const int lw = tid / G;           // the group's lane slot in the block
+  const int L0 = blockIdx.x * LB;
+  // Every thread of the block runs every stage (a lane past the batch's
+  // end computes on lane B - 1 and writes nothing), so the warp is
+  // converged at each exchange and the exchanges name the whole warp.
+  constexpr unsigned kFull = 0xffffffffu;
   const size_t sB = static_cast<size_t>(B);
-  auto at = [&](const T* p, size_t i) { return p[i * sB + lane]; };
-
-  T Vx[NZ], Vxx[NZ][NZ];
+  // The lane this thread copies and drains for (element e = tid +
+  // kThreads q of a tile has lane slot tid % LB): past the batch's end,
+  // lane B - 1.
+  const int cl = tid % LB;
+  const int copy_lane = (L0 + cl < B) ? L0 + cl : B - 1;
+  // Where every row starts 16-byte aligned (vec: B a multiple of kVec =
+  // 16 / sizeof(T), the arrays 16-byte aligned) a copy moves kVec lanes,
+  // and each thread's share of a stage is fixed over the stages: item q is
+  // chunk tid % C of stage row (tid + kThreads q) / C. The item keeps its
+  // array's element for stage 0 and the array's rows per stage, so stage
+  // k's copy is one multiply-add away. Past the batch's end a chunk copies
+  // the last aligned one.
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int C = LB / kVec;
+  constexpr int kItems = (R::kStage * C + kThreads - 1) / kThreads;
+  const T* vsrc[kItems];
+  int vrows[kItems], vdst[kItems];
+  {
+    const int chunk = L0 + (tid % C) * kVec;
+    const int vl = (chunk < B - kVec) ? chunk : B - kVec;
 #pragma unroll
-  for (int i = 0; i < NZ; ++i) {
-    Vx[i] = at(gx, i);
-#pragma unroll
-    for (int j = 0; j < NZ; ++j) Vxx[i][j] = at(gxx, i * NZ + j);
+    for (int q = 0; q < kItems; ++q) {
+      const int row = (tid + q * kThreads) / C;
+      const T* src = A;
+      int first = R::kA, n = NZ * NZ;
+      if (row >= R::kB) { src = Bm; first = R::kB; n = 2 * NZ; }
+      if (row >= R::kLx) { src = lx; first = R::kLx; n = NZ; }
+      if (row >= R::kLu) { src = lu; first = R::kLu; n = 2; }
+      if (row >= R::kLxx) { src = lxx; first = R::kLxx; n = NZ * NZ; }
+      if (row >= R::kLux) { src = lux; first = R::kLux; n = 2 * NZ; }
+      if (row >= R::kLuu) { src = luu; first = R::kLuu; n = 4; }
+      if (row >= R::kV) { src = V; first = R::kV; n = 2; }
+      vsrc[q] = src + static_cast<size_t>(row - first) * sB + vl;
+      vrows[q] = n;
+      vdst[q] = (row < R::kStage) ? row * LB + (tid % C) * kVec : -1;
+    }
   }
-  const T reg = reg_in[lane];
+  // Each thread's share of a stage's D and K rows, the same way: item q is
+  // lane slot cl of output row (tid + kThreads q) / LB.
+  constexpr int kOutItems = (R::kOut * LB + kThreads - 1) / kThreads;
+  T* odst[kOutItems];
+  int orows[kOutItems], osrc[kOutItems];
+#pragma unroll
+  for (int q = 0; q < kOutItems; ++q) {
+    const int row = (tid + q * kThreads) / LB;
+    odst[q] = (row < 2) ? D + static_cast<size_t>(row) * sB + L0 + cl
+                        : K + static_cast<size_t>(row - 2) * sB + L0 + cl;
+    orows[q] = (row < 2) ? 2 : 2 * NZ;
+    osrc[q] = (row < R::kOut && L0 + cl < B) ? row * LB + cl : -1;
+  }
+  const int lane = L0 + lw;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const ring = reinterpret_cast<T*>(smem_raw);          // S stage tiles
+  T* const scr = ring + S * R::kStage * LB;                 // scratch
+  T* const outt = scr + R::kScratch * LB;                   // 2 output tiles
+
+  // Stage k's inputs into ring slot k % S, one commit per call.
+  auto issue = [&](int k) {
+    if (k >= 0) {
+      T* dst = ring + (k % S) * R::kStage * LB;
+      if (vec) {
+#pragma unroll
+        for (int q = 0; q < kItems; ++q)
+          if (vdst[q] >= 0)
+            __pipeline_memcpy_async(
+                dst + vdst[q], vsrc[q] + static_cast<size_t>(k * vrows[q]) * sB, 16);
+      } else {
+        copy_rows<NZ * NZ>(dst + R::kA * LB, A, k, sB, tid, copy_lane);
+        copy_rows<2 * NZ>(dst + R::kB * LB, Bm, k, sB, tid, copy_lane);
+        copy_rows<NZ>(dst + R::kLx * LB, lx, k, sB, tid, copy_lane);
+        copy_rows<2>(dst + R::kLu * LB, lu, k, sB, tid, copy_lane);
+        copy_rows<NZ * NZ>(dst + R::kLxx * LB, lxx, k, sB, tid, copy_lane);
+        copy_rows<2 * NZ>(dst + R::kLux * LB, lux, k, sB, tid, copy_lane);
+        copy_rows<4>(dst + R::kLuu * LB, luu, k, sB, tid, copy_lane);
+        copy_rows<2>(dst + R::kV * LB, V, k, sB, tid, copy_lane);
+      }
+    }
+    __pipeline_commit();
+  };
+  // Stage k's D and K, from output tile k % 2, to global memory.
+  auto drain = [&](int k) {
+    const T* src = outt + (k % 2) * R::kOut * LB;
+#pragma unroll
+    for (int q = 0; q < kOutItems; ++q)
+      if (osrc[q] >= 0) odst[q][static_cast<size_t>(k * orows[q]) * sB] = src[osrc[q]];
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) issue(N - 1 - s);
+
+  // The value function at the horizon's end: Vxx into scratch, Vx through
+  // the scratch's Vx rows; every thread then reads its lane's Vx.
+  load_rows<NZ * NZ>(scr + R::kVxx * LB, gxx, sB, tid, copy_lane);
+  load_rows<NZ>(scr + R::kVx * LB, gx, sB, tid, copy_lane);
+  const T reg = reg_in[lane < B ? lane : B - 1];
+  T* const sc = scr + lw;
+  auto SC = [&](int row) -> T& { return sc[row * LB]; };
+  __syncthreads();
+  T Vx[NZ];
+#pragma unroll
+  for (int i = 0; i < NZ; ++i) Vx[i] = SC(R::kVx + i);
+  // The thread's unique entries of Vxx, (vi, vj) with vi <= vj.
+  int vi[R::kTri], vj[R::kTri];
+#pragma unroll
+  for (int q = 0; q < R::kTri; ++q)
+    tri_ij<NZ>((r + G * q < R::kUnique) ? r + G * q : R::kUnique - 1, vi[q], vj[q]);
 
 #pragma unroll 1
   for (int k = N - 1; k >= 0; --k) {
-    const size_t k_nn = static_cast<size_t>(k) * NZ * NZ;
-    const size_t k_n2 = static_cast<size_t>(k) * NZ * 2;
-    T Ak[NZ][NZ], Bk[NZ][2];
+    // Stage k has landed once at most S - 2 newer groups are pending; the
+    // barrier makes every thread's copies (and the last stage's Vxx and
+    // output tile) visible to the block.
+    __pipeline_wait_prior(S - 2);
+    __syncthreads();
+    if (k + 1 < N) drain(k + 1);
+    issue(k - (S - 1));   // into the slot stage k + 1 left
+
+    const T* const st = ring + (k % S) * R::kStage * LB + lw;
+    auto IN = [&](int row) { return st[row * LB]; };
+    T* const ot = outt + (k % 2) * R::kOut * LB + lw;
+
+    // Qu[r & 1] = lu + B^T Vx; every thread computes one.
+    T QuR;
+    {
+      const int u = r & 1;
+      T acc = IN(R::kB + u) * Vx[0];
 #pragma unroll
-    for (int i = 0; i < NZ; ++i) {
-#pragma unroll
-      for (int j = 0; j < NZ; ++j) Ak[i][j] = at(A, k_nn + i * NZ + j);
-      Bk[i][0] = at(Bm, k_n2 + i * 2);
-      Bk[i][1] = at(Bm, k_n2 + i * 2 + 1);
+      for (int t = 1; t < NZ; ++t) acc = acc + IN(R::kB + 2 * t + u) * Vx[t];
+      QuR = IN(R::kLu + u) + acc;
     }
 
-    // Qx = lx + A^T Vx, Qu = lu + B^T Vx
-    T Qx[NZ];
+    // Owned columns j: Qx[j], and column j of m = Vxx A, mr = (Vxx + reg I)
+    // A, Qxx = lxx + A^T m and Qux = lux + B^T mr; then the pairs (w, t) of
+    // nr[w][t] = row t of (Vxx + reg I) B[:, w], dealt round. Every slot is
+    // computed (a column or pair past the end reads rows inside the tile
+    // and is dropped) and the stores come last, so the loads of the whole
+    // section can be issued ahead of its arithmetic.
+    T qx[R::kCols], qux0[R::kCols], qux1[R::kCols], qxx[R::kCols][NZ];
 #pragma unroll
-    for (int i = 0; i < NZ; ++i) {
-      T acc = Ak[0][i] * Vx[0];
+    for (int q = 0; q < R::kCols; ++q) {
+      const int j = r + G * q;
+      T ac[NZ];   // column j of A
 #pragma unroll
-      for (int t = 1; t < NZ; ++t) acc = acc + Ak[t][i] * Vx[t];
-      Qx[i] = at(lx, static_cast<size_t>(k) * NZ + i) + acc;
-    }
-    T Qu[2];
+      for (int s = 0; s < NZ; ++s) ac[s] = IN(R::kA + s * NZ + j);
+      {
+        T acc = ac[0] * Vx[0];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      T acc = Bk[0][u] * Vx[0];
-#pragma unroll
-      for (int t = 1; t < NZ; ++t) acc = acc + Bk[t][u] * Vx[t];
-      Qu[u] = at(lu, static_cast<size_t>(k) * 2 + u) + acc;
-    }
-
-    // Column j of Vxx A (m) and of (Vxx + reg I) A (mr), then column j of
-    // Qxx = lxx + A^T (Vxx A) and Qux = lux + B^T ((Vxx + reg I) A).
-    T Qxx[NZ][NZ], Qux[2][NZ];
-#pragma unroll
-    for (int j = 0; j < NZ; ++j) {
+        for (int t = 1; t < NZ; ++t) acc = acc + ac[t] * Vx[t];
+        qx[q] = IN(R::kLx + j) + acc;
+      }
       T m[NZ], mr[NZ];
 #pragma unroll
       for (int t = 0; t < NZ; ++t) {
-        T acc = Vxx[t][0] * Ak[0][j];
-        T accr = ((t == 0) ? Vxx[0][0] + reg : Vxx[t][0]) * Ak[0][j];
+        const T v0 = SC(R::kVxx + t * NZ);
+        T acc = v0 * ac[0];
+        T accr = ((t == 0) ? v0 + reg : v0) * ac[0];
 #pragma unroll
         for (int s = 1; s < NZ; ++s) {
-          acc = acc + Vxx[t][s] * Ak[s][j];
-          accr = accr + ((t == s) ? Vxx[t][s] + reg : Vxx[t][s]) * Ak[s][j];
+          const T v = SC(R::kVxx + t * NZ + s);
+          acc = acc + v * ac[s];
+          accr = accr + ((t == s) ? v + reg : v) * ac[s];
         }
         m[t] = acc;
         mr[t] = accr;
       }
 #pragma unroll
       for (int i = 0; i < NZ; ++i) {
-        T acc = Ak[0][i] * m[0];
+        T acc = IN(R::kA + i) * m[0];
 #pragma unroll
-        for (int t = 1; t < NZ; ++t) acc = acc + Ak[t][i] * m[t];
-        Qxx[i][j] = at(lxx, k_nn + i * NZ + j) + acc;
+        for (int t = 1; t < NZ; ++t) acc = acc + IN(R::kA + t * NZ + i) * m[t];
+        qxx[q][i] = IN(R::kLxx + i * NZ + j) + acc;
       }
+      T qu[2];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        T acc = Bk[0][u] * mr[0];
+        T acc = IN(R::kB + u) * mr[0];
 #pragma unroll
-        for (int t = 1; t < NZ; ++t) acc = acc + Bk[t][u] * mr[t];
-        Qux[u][j] = at(lux, k_n2 + u * NZ + j) + acc;
+        for (int t = 1; t < NZ; ++t) acc = acc + IN(R::kB + 2 * t + u) * mr[t];
+        qu[u] = IN(R::kLux + u * NZ + j) + acc;
+      }
+      qux0[q] = qu[0];
+      qux1[q] = qu[1];
+    }
+    T nr[R::kPairs];
+#pragma unroll
+    for (int q = 0; q < R::kPairs; ++q) {
+      const int p = r + G * q;
+      const int w = p / NZ, t = p % NZ;
+      T acc = ((t == 0) ? SC(R::kVxx + t * NZ) + reg : SC(R::kVxx + t * NZ))
+              * IN(R::kB + w);
+#pragma unroll
+      for (int s = 1; s < NZ; ++s) {
+        const T v = SC(R::kVxx + t * NZ + s);
+        acc = acc + ((t == s) ? v + reg : v) * IN(R::kB + 2 * s + w);
+      }
+      nr[q] = acc;
+    }
+#pragma unroll
+    for (int q = 0; q < R::kCols; ++q) {
+      const int j = r + G * q;
+      if (j < NZ) {
+#pragma unroll
+        for (int i = 0; i < NZ; ++i) SC(R::kQxx + i * NZ + j) = qxx[q][i];
+        SC(R::kQux + j) = qux0[q];
+        SC(R::kQux + NZ + j) = qux1[q];
       }
     }
-    // Quu = luu + B^T ((Vxx + reg I) B), symmetrised, + 1e-9 on the diagonal.
-    T Quu[2][2];
 #pragma unroll
-    for (int w = 0; w < 2; ++w) {
-      T nr[NZ];
-#pragma unroll
-      for (int t = 0; t < NZ; ++t) {
-        T acc = ((t == 0) ? Vxx[0][0] + reg : Vxx[t][0]) * Bk[0][w];
-#pragma unroll
-        for (int s = 1; s < NZ; ++s)
-          acc = acc + ((t == s) ? Vxx[t][s] + reg : Vxx[t][s]) * Bk[s][w];
-        nr[t] = acc;
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        T acc = Bk[0][u] * nr[0];
-#pragma unroll
-        for (int t = 1; t < NZ; ++t) acc = acc + Bk[t][u] * nr[t];
-        Quu[u][w] = at(luu, static_cast<size_t>(k) * 4 + u * 2 + w) + acc;
-      }
-    }
-    const T q00 = T(0.5) * (Quu[0][0] + Quu[0][0]) + T(1e-9);
-    const T q01 = T(0.5) * (Quu[0][1] + Quu[1][0]);
-    const T q11 = T(0.5) * (Quu[1][1] + Quu[1][1]) + T(1e-9);
+    for (int q = 0; q < R::kPairs; ++q)
+      if (r + G * q < 2 * NZ) SC(R::kNr + r + G * q) = nr[q];
+    __syncwarp(kFull);
 
-    const T v0 = at(V, static_cast<size_t>(k) * 2);
-    const T v1 = at(V, static_cast<size_t>(k) * 2 + 1);
+    // Quu[u][w] = luu + B^T nr_w, entry r % 4 = (u, w) = (r / 2 % 2, r % 2).
+    T quu;
+    {
+      const int u = r / 2 % 2, w = r % 2;
+      T acc = IN(R::kB + u) * SC(R::kNr + w * NZ);
+#pragma unroll
+      for (int t = 1; t < NZ; ++t)
+        acc = acc + IN(R::kB + 2 * t + u) * SC(R::kNr + w * NZ + t);
+      quu = IN(R::kLuu + r % 4) + acc;
+    }
+    const T Qu0 = __shfl_sync(kFull, QuR, 0, G);
+    const T Qu1 = __shfl_sync(kFull, QuR, 1, G);
+    const T Quu00 = __shfl_sync(kFull, quu, 0, G);
+    const T Quu01 = __shfl_sync(kFull, quu, 1, G);
+    const T Quu10 = __shfl_sync(kFull, quu, 2, G);
+    const T Quu11 = __shfl_sync(kFull, quu, 3, G);
+    const T q00 = T(0.5) * (Quu00 + Quu00) + T(1e-9);
+    const T q01 = T(0.5) * (Quu01 + Quu10);
+    const T q11 = T(0.5) * (Quu11 + Quu11) + T(1e-9);
+
+    const T v0 = IN(R::kV), v1 = IN(R::kV + 1);
     T d0, d1, f0, f1;
-    boxqp2(q00, q01, q11, Qu[0], Qu[1], lo0 - v0, lo1 - v1, hi0 - v0,
-           hi1 - v1, d0, d1, f0, f1);
-    T k0[NZ], k1[NZ];
-    gains2<T, NZ>(q00, q01, q11, f0, f1, Qux[0], Qux[1], k0, k1);
+    boxqp2_dealt<G>(kFull, r, q00, q01, q11, Qu0, Qu1, lo0 - v0, lo1 - v1,
+                    hi0 - v0, hi1 - v1, d0, d1, f0, f1);
+    if (r < 2) ot[r * LB] = (r == 0) ? d0 : d1;
 
-    D[(static_cast<size_t>(k) * 2) * sB + lane] = d0;
-    D[(static_cast<size_t>(k) * 2 + 1) * sB + lane] = d1;
-#pragma unroll
-    for (int j = 0; j < NZ; ++j) {
-      K[(k_n2 + j) * sB + lane] = k0[j];
-      K[(k_n2 + NZ + j) * sB + lane] = k1[j];
-    }
-
-    // Vx = Qx + K^T (Quu d) + K^T Qu + Qux^T d
+    // Gains on the free set (gains2) for the owned columns, and the new
+    // Vx = Qx + K^T (Quu d) + K^T Qu + Qux^T d there.
+    const T h00 = q00 * f0 * f0 + (T(1) - f0);
+    const T h01 = q01 * f0 * f1;
+    const T h11 = q11 * f1 * f1 + (T(1) - f1);
+    const T deth = guard_tiny(h00 * h11 - h01 * h01);
     const T Qd0 = q00 * d0 + q01 * d1;
     const T Qd1 = q01 * d0 + q11 * d1;
 #pragma unroll
-    for (int i = 0; i < NZ; ++i)
-      Vx[i] = Qx[i] + (k0[i] * Qd0 + k1[i] * Qd1) + (k0[i] * Qu[0] + k1[i] * Qu[1])
-              + (Qux[0][i] * d0 + Qux[1][i] * d1);
-    // Vxx = Qxx + (K^T Quu) K + K^T Qux + Qux^T K, then symmetrised.
-    T kq0[NZ], kq1[NZ];
-#pragma unroll
-    for (int i = 0; i < NZ; ++i) {
-      kq0[i] = k0[i] * q00 + k1[i] * q01;
-      kq1[i] = k0[i] * q01 + k1[i] * q11;
+    for (int q = 0; q < R::kCols; ++q) {
+      const int j = r + G * q;
+      if (j < NZ) {
+        const T b0 = qux0[q] * f0;
+        const T b1 = qux1[q] * f1;
+        const T k0 = -(h11 * b0 - h01 * b1) / deth;
+        const T k1 = -(-h01 * b0 + h00 * b1) / deth;
+        SC(R::kK + j) = k0;
+        SC(R::kK + NZ + j) = k1;
+        ot[(2 + j) * LB] = k0;
+        ot[(2 + NZ + j) * LB] = k1;
+        SC(R::kVx + j) = qx[q] + (k0 * Qd0 + k1 * Qd1) + (k0 * Qu0 + k1 * Qu1)
+                         + (qux0[q] * d0 + qux1[q] * d1);
+      }
     }
-    auto vxx_entry = [&](int i, int j) {
-      return Qxx[i][j] + (kq0[i] * k0[j] + kq1[i] * k1[j])
-             + (k0[i] * Qux[0][j] + k1[i] * Qux[1][j])
-             + (Qux[0][i] * k0[j] + Qux[1][i] * k1[j]);
-    };
+    __syncwarp(kFull);
+
 #pragma unroll
-    for (int i = 0; i < NZ; ++i) {
+    for (int i = 0; i < NZ; ++i) Vx[i] = SC(R::kVx + i);
+    // Vxx = Qxx + (K^T Quu) K + K^T Qux + Qux^T K, then symmetrised, over
+    // the unique entries dealt round the group (a slot past the end
+    // repeats the last entry and is dropped); the stores come last.
+    T vs[R::kTri];
 #pragma unroll
-      for (int j = i; j < NZ; ++j) {
-        const T a = vxx_entry(i, j);
-        const T s = T(0.5) * (a + ((i == j) ? a : vxx_entry(j, i)));
-        Vxx[i][j] = s;
-        Vxx[j][i] = s;
+    for (int q = 0; q < R::kTri; ++q) {
+      const int i = vi[q], j = vj[q];
+      const T k0i = SC(R::kK + i), k1i = SC(R::kK + NZ + i);
+      const T k0j = SC(R::kK + j), k1j = SC(R::kK + NZ + j);
+      const T x0i = SC(R::kQux + i), x1i = SC(R::kQux + NZ + i);
+      const T x0j = SC(R::kQux + j), x1j = SC(R::kQux + NZ + j);
+      // (K^T Qux)[i][j] and [j][i]: each is a term of both entries.
+      const T mij = k0i * x0j + k1i * x1j;
+      const T mji = k0j * x0i + k1j * x1i;
+      const T a = SC(R::kQxx + i * NZ + j)
+                  + ((k0i * q00 + k1i * q01) * k0j + (k0i * q01 + k1i * q11) * k1j)
+                  + mij + mji;
+      const T b = SC(R::kQxx + j * NZ + i)
+                  + ((k0j * q00 + k1j * q01) * k0i + (k0j * q01 + k1j * q11) * k1i)
+                  + mji + mij;
+      vs[q] = T(0.5) * (a + ((i == j) ? a : b));
+    }
+#pragma unroll
+    for (int q = 0; q < R::kTri; ++q) {
+      if (r + G * q < R::kUnique) {
+        SC(R::kVxx + vi[q] * NZ + vj[q]) = vs[q];
+        SC(R::kVxx + vj[q] * NZ + vi[q]) = vs[q];
       }
     }
   }
+  __syncthreads();
+  drain(0);
 }
+
+// Launch geometry of one instance: the stage ring's depth, dynamic shared
+// bytes per block.
+template <typename T, int NZ>
+struct Instance {
+  // Three stages in flight, two where a deeper ring would keep fewer than
+  // three blocks on an SM (NZ = 10 in double).
+  static constexpr int kStages =
+      (sizeof(T) * LB * (4 * Rows<NZ>::kStage + Rows<NZ>::kScratch
+                         + 2 * Rows<NZ>::kOut) > 72 * 1024) ? 3 : 4;
+  static constexpr size_t kShared =
+      sizeof(T) * LB * (kStages * Rows<NZ>::kStage + Rows<NZ>::kScratch
+                        + 2 * Rows<NZ>::kOut);
+
+  // Raise the dynamic shared limit above the default 48 KB, once.
+  static cudaError_t prepare() {
+    static cudaError_t err = cudaFuncSetAttribute(
+        riccati_kernel<T, NZ, kStages>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kShared));
+    return err;
+  }
+
+  static int run(const T* A, const T* Bm, const T* lx, const T* lu,
+                 const T* lxx, const T* lux, const T* luu, const T* gx,
+                 const T* gxx, const T* V, const T* reg, T* D, T* K, int B,
+                 int N, T lo0, T lo1, T hi0, T hi1, cudaStream_t s) {
+    const cudaError_t err = prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // 16-byte copies where every stage input's rows start 16-byte aligned.
+    std::uintptr_t addr = 0;
+    for (const T* p : {A, Bm, lx, lu, lxx, lux, luu, V})
+      addr |= reinterpret_cast<std::uintptr_t>(p);
+    const bool vec = B % (16 / static_cast<int>(sizeof(T))) == 0 && addr % 16 == 0;
+    const dim3 grid((B + LB - 1) / LB);
+    riccati_kernel<T, NZ, kStages><<<grid, kThreads, kShared, s>>>(
+        A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, reg, D, K, B, N, lo0, lo1,
+        hi0, hi1, vec);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  static int geometry(int* threads, int* lanes, int* shared, int* blocks_per_sm) {
+    cudaError_t err = prepare();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *threads = kThreads;
+    *lanes = LB;
+    *shared = static_cast<int>(kShared);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, riccati_kernel<T, NZ, kStages>, kThreads, kShared);
+    return static_cast<int>(err);
+  }
+};
 
 template <typename T>
 int launch(const T* A, const T* Bm, const T* lx, const T* lu, const T* lxx,
            const T* lux, const T* luu, const T* gx, const T* gxx, const T* V,
            const T* reg, T* D, T* K, int B, int N, int nz, double lo0,
            double lo1, double hi0, double hi1, void* stream) {
+  if (nz != 6 && nz != 10) return kBadShape;
   if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((B + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T l0 = static_cast<T>(lo0), l1 = static_cast<T>(lo1);
   const T h0 = static_cast<T>(hi0), h1 = static_cast<T>(hi1);
-  switch (nz) {
-    case 6:
-      riccati_kernel<T, 6><<<grid, kThreads, 0, s>>>(
-          A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, reg, D, K, B, N, l0, l1,
-          h0, h1);
-      break;
-    case 10:
-      riccati_kernel<T, 10><<<grid, kThreads, 0, s>>>(
-          A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, reg, D, K, B, N, l0, l1,
-          h0, h1);
-      break;
-    default:
-      return kBadShape;
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (nz == 6)
+    return Instance<T, 6>::run(A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, reg,
+                               D, K, B, N, l0, l1, h0, h1, s);
+  return Instance<T, 10>::run(A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, reg,
+                              D, K, B, N, l0, l1, h0, h1, s);
 }
 
 }  // namespace
@@ -254,6 +551,20 @@ int riccati_f64(const double* A, const double* Bm, const double* lx,
                 double hi1, void* stream) {
   return launch<double>(A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, reg, D, K,
                         B, N, nz, lo0, lo1, hi0, hi1, stream);
+}
+
+// Threads and lanes per block, dynamic shared bytes per block and resident
+// blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) of the
+// instance a call with state size nz and element size itemsize (4 or 8)
+// runs.
+int riccati_geometry(int nz, int itemsize, int* threads, int* lanes,
+                     int* shared, int* blocks_per_sm) {
+  if ((nz != 6 && nz != 10) || (itemsize != 4 && itemsize != 8)) return kBadShape;
+  if (itemsize == 4)
+    return nz == 6 ? Instance<float, 6>::geometry(threads, lanes, shared, blocks_per_sm)
+                   : Instance<float, 10>::geometry(threads, lanes, shared, blocks_per_sm);
+  return nz == 6 ? Instance<double, 6>::geometry(threads, lanes, shared, blocks_per_sm)
+                 : Instance<double, 10>::geometry(threads, lanes, shared, blocks_per_sm);
 }
 
 }  // extern "C"

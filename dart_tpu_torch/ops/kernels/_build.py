@@ -119,7 +119,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, base + suffix)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-    for geometry in (lib.rmpc_solve_geometry, lib.lmpc_solve_geometry):
+    for geometry in (lib.pmpc_solve_geometry, lib.riccati_geometry,
+                     lib.rmpc_solve_geometry, lib.lmpc_solve_geometry):
         geometry.argtypes = (
             [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 4)
         geometry.restype = ctypes.c_int
@@ -128,16 +129,17 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def launch_geometry(kernel: str, N: int, itemsize: int) -> dict:
+def launch_geometry(kernel: str, size: int, itemsize: int) -> dict:
     """Threads and lanes per block, dynamic shared bytes per block and the
     blocks resident per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    of `kernel`'s CUDA instance for horizon N and elements of `itemsize`
-    bytes (4 or 8), from its C query `<kernel>_geometry`."""
+    of `kernel`'s CUDA instance for `size` (the horizon N; the state size
+    nz for `riccati`) and elements of `itemsize` bytes (4 or 8), from its C
+    query `<kernel>_geometry`."""
     vals = [ctypes.c_int(0) for _ in range(4)]
     err = getattr(library(), f"{kernel}_geometry")(
-        N, itemsize, *(ctypes.byref(v) for v in vals))
+        size, itemsize, *(ctypes.byref(v) for v in vals))
     if err == BAD_SHAPE:
-        raise NotImplementedError(f"no {kernel} instance for N={N}, "
+        raise NotImplementedError(f"no {kernel} instance for size {size}, "
                                   f"{itemsize}-byte elements")
     if err != 0:
         raise RuntimeError(f"{kernel} geometry query failed: "

@@ -11,10 +11,11 @@ Sd = dt-diagonal plus the same pattern (3 and 4 lane values).
 
 `pmpc_solve` keeps `pmpc_solve_pallas`'s signature and batch-last layout:
 Ad/Sd (6,6,B), wdiag/target/z0 (6,B), rw (B,), V0 (N,2,B). On CUDA tensors
-it launches the hand-written kernel `csrc/pmpc_solve.cu` (one thread per
-lane); on CPU tensors it runs `pmpc_solve_reference`, the plain PyTorch
-version that follows the TPU kernel body line for line. The structure
-guard runs outside the kernel on both routes.
+it launches the hand-written kernel `csrc/pmpc_solve.cu` (a lane per group
+of 8 threads), which also runs the structure guard; on CPU tensors it runs
+`pmpc_solve_reference`, the plain PyTorch version that follows the TPU
+kernel body line for line and runs the guard (`structure_residual`) after
+it.
 """
 
 from __future__ import annotations
@@ -312,13 +313,14 @@ def work(N: int, n_iters: int, B: int, trials: int, itemsize: int,
     version), for the roofline bound. FLOPs: the rollout and the trials as
     `flops_per_solve` counts them (the trials as run), and each backward
     pass over its structural non-zeros (`_backward_counts`; `w_nz` the
-    six bools wdiag != 0 of the call's lanes). Bytes: every input read
-    once (ad3, sd4, wdiag, rw, target, z0, V0), every output written once
-    (V, cost, gnorm)."""
+    six bools wdiag != 0 of the call's lanes); the structure guard's 72
+    compares are not counted. Bytes: every input read once (the dense
+    Ad and Sd, which the kernel's structure guard reads whole, wdiag, rw,
+    target, z0, V0), every output written once (V, cost, gnorm)."""
     back = _backward_counts(N, w_nz)
     flops = B * (_ROLLOUT * N + 23 + n_iters * (back + 10)) \
         + trials * (_TRIAL * N + _ACCEPT)
-    values = B * (3 + 4 + 6 + 1 + 6 + 6 + 2 * N) + B * (2 * N + 2)
+    values = B * (36 + 36 + 6 + 1 + 6 + 6 + 2 * N) + B * (2 * N + 2)
     return flops, values * itemsize
 
 
@@ -370,8 +372,7 @@ def _check(Ad, Sd, wdiag, rw, target, z0, V0):
             raise TypeError(f"{name} is {t.dtype}, V0 is {dtype}")
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, V0 on {device}")
-        # Ad/Sd are only read here in Python; the rest go to the kernel.
-        if name not in ("Ad", "Sd") and not t.is_contiguous():
+        if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
@@ -405,10 +406,12 @@ def pmpc_solve(Ad, Sd, wdiag, rw, target, z0, V0, dt: float,
     """Whole PMPC solve, batch-last. Returns (V (N,2,B), cost (B,),
     gnorm (B,)), gnorm being the max |feedforward| of the last iteration.
 
-    CPU tensors run the plain version. CUDA tensors launch the kernel and
-    add one to `pmpc_solve.launches`; a horizon the kernel has no instance
-    for (`csrc/pmpc_solve.cu`, `launch`), a budget outside 1 <= n_iters,
-    1 <= n_alphas <= 16, or a failed launch raises.
+    CPU tensors run the plain version. CUDA tensors launch the kernel,
+    which also sets a lane's cost and gnorm to +inf where Ad/Sd break the
+    structure the solve assumes, and add one to `pmpc_solve.launches`; a
+    horizon the kernel has no instance for (`csrc/pmpc_solve.cu`,
+    `launch`), a budget outside 1 <= n_iters, 1 <= n_alphas <= 16, or a
+    failed launch raises.
     """
     if V0.device.type == "cpu":
         return pmpc_solve_reference(Ad, Sd, wdiag, rw, target, z0, V0, dt,
@@ -417,7 +420,6 @@ def pmpc_solve(Ad, Sd, wdiag, rw, target, z0, V0, dt: float,
     if V0.device.type != "cuda":
         raise ValueError(f"pmpc_solve runs on cpu or cuda, not {V0.device}")
     N, _, B = V0.shape
-    ad3, sd4 = _free_entries(Ad, Sd)
     V = torch.empty_like(V0)
     cost = torch.empty_like(rw)
     gnorm = torch.empty_like(rw)
@@ -427,7 +429,7 @@ def pmpc_solve(Ad, Sd, wdiag, rw, target, z0, V0, dt: float,
     stream = torch.cuda.current_stream(V0.device).cuda_stream
     with torch.cuda.device(V0.device):
         err = fn(*(ctypes.c_void_p(t.data_ptr()) for t in
-                   (ad3, sd4, wdiag, rw, target, z0, V0, V, cost, gnorm)),
+                   (Ad, Sd, wdiag, rw, target, z0, V0, V, cost, gnorm)),
                  B, N, n_iters, n_alphas, float(dt), float(u_bound),
                  float(g), ctypes.c_void_p(stream))
     if err == _build.BAD_SHAPE:
@@ -441,9 +443,14 @@ def pmpc_solve(Ad, Sd, wdiag, rw, target, z0, V0, dt: float,
         raise RuntimeError(f"pmpc_solve kernel launch failed: "
                            f"{_build.error_string(err)} (code {err})")
     pmpc_solve.launches += 1
-    bad = structure_residual(Ad, Sd, dt) > 1e-6
-    cost, gnorm = _bad_structure_to_inf(bad, cost, gnorm)
     return V, cost, gnorm
 
 
 pmpc_solve.launches = 0
+
+
+def launch_geometry(N: int, dtype: torch.dtype) -> dict:
+    """Launch geometry of the CUDA instance for horizon N and `dtype`
+    (`_build.launch_geometry`). Needs the built library and a card."""
+    return _build.launch_geometry("pmpc_solve", N,
+                                  torch.empty((), dtype=dtype).element_size())

@@ -11,8 +11,9 @@ augmented state) or 10 (LMPC's augmented state).
 A (N,nz,nz,B), B (N,nz,2,B), lx (N,nz,B), lu (N,2,B), lxx (N,nz,nz,B),
 lux (N,2,nz,B), luu (N,2,2,B), gx (nz,B), gxx (nz,nz,B), V (N,2,B);
 u_lo/u_hi two bounds each; reg a scalar or (B,). Returns D (N,2,B) and
-K (N,2,nz,B). On CUDA tensors it launches `csrc/riccati.cu` (one thread
-per lane); on CPU tensors it runs `riccati_backward_reference`, the plain
+K (N,2,nz,B). On CUDA tensors it launches `csrc/riccati.cu` (a lane per
+group of 4 threads, each stage's inputs copied into shared memory stages
+ahead); on CPU tensors it runs `riccati_backward_reference`, the plain
 PyTorch version of `_backward_kernel`.
 """
 
@@ -155,6 +156,13 @@ def riccati_backward(A, B, lx, lu, lxx, lux, luu, gx, gxx, V, u_lo, u_hi,
 
 
 riccati_backward.launches = 0
+
+
+def launch_geometry(nz: int, dtype: torch.dtype) -> dict:
+    """Launch geometry of the CUDA instance for state size nz and `dtype`
+    (`_build.launch_geometry`). Needs the built library and a card."""
+    return _build.launch_geometry("riccati", nz,
+                                  torch.empty((), dtype=dtype).element_size())
 
 
 def _stage_counts(N: int, A_nz, B_nz) -> int:

@@ -3,12 +3,18 @@
 A CUDA kernel runs only on the card, but its logic can be checked on the
 host: the header below stands in for the CUDA runtime and the warp
 primitives the kernels use, running one std::thread per CUDA thread of a
-block, the blocks in turn, and each `__shfl_sync`, `__ballot_sync` and
-`__syncwarp` through a barrier over the threads its mask names (one barrier
-per mask, so the masks of a lane's group, of one of its axes and of a pair
-of threads may be in use at once). Shared memory starts as 0xff bytes, so
-a read of an element no thread wrote is NaN. The host compiler does not
-contract multiplies and adds. Times from such a build mean nothing.
+block, the blocks in turn. Each `__shfl_sync`, `__ballot_sync`,
+`__all_sync` and `__syncwarp` goes through a barrier over the threads its
+mask names (one barrier per warp and mask, so the masks of a lane's group,
+of one of its axes and of a pair of threads may be in use at once), and
+`__syncthreads` through a barrier over the block. Shared memory starts as
+0xff bytes, so a read of an element no thread wrote is NaN. The
+asynchronous copies of `<cuda_pipeline.h>` (`__pipeline_memcpy_async`,
+`__pipeline_commit`, `__pipeline_wait_prior`) land at the wait that covers
+them, never at issue, so a read of a copy's destination before that wait,
+or another thread's read before a barrier after it, sees what the shared
+memory held. The host compiler does not contract multiplies and adds.
+Times from such a build mean nothing.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ inline unsigned char* g_smem = nullptr;
 template <class F> int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
 template <class F> int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t) { *n = 1; return 0; }
 inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 struct GroupBarrier {
   std::mutex m; std::condition_variable cv; int count = 0, gen = 0;
   void wait(int n) {
@@ -55,36 +62,43 @@ struct GroupBarrier {
   }
 };
 inline std::mutex g_bar_lock;
-inline std::map<unsigned, GroupBarrier> g_bar;
-inline double g_slot[32];
-inline bool g_pred[32];
+inline std::map<unsigned long long, GroupBarrier> g_bar;
+inline double g_slot[1024];
+inline bool g_pred[1024];
 inline void __syncwarp(unsigned mask) {
   GroupBarrier* b;
   {
     std::lock_guard<std::mutex> l(g_bar_lock);
-    b = &g_bar[mask];
+    const unsigned long long warp = threadIdx.x / 32;
+    b = &g_bar[(warp << 32) | mask];
   }
   b->wait(__builtin_popcount(mask));
 }
 template <class T> T __shfl_sync(unsigned mask, T v, int src, int width) {
-  const int l = threadIdx.x % 32;
-  std::memcpy(&g_slot[l], &v, sizeof(T));
+  const int w = threadIdx.x / 32 * 32, l = threadIdx.x % 32;
+  std::memcpy(&g_slot[w + l], &v, sizeof(T));
   __syncwarp(mask);
   T out;
-  std::memcpy(&out, &g_slot[l / width * width + src], sizeof(T));
+  std::memcpy(&out, &g_slot[w + l / width * width + src], sizeof(T));
   __syncwarp(mask);
   return out;
 }
 inline unsigned __ballot_sync(unsigned mask, bool p) {
-  g_pred[threadIdx.x % 32] = p;
+  const int w = threadIdx.x / 32 * 32;
+  g_pred[w + threadIdx.x % 32] = p;
   __syncwarp(mask);
   unsigned out = 0;
   for (int i = 0; i < 32; ++i)
-    if ((mask >> i) & 1u) out |= (g_pred[i] ? 1u : 0u) << i;
+    if ((mask >> i) & 1u) out |= (g_pred[w + i] ? 1u : 0u) << i;
   __syncwarp(mask);
   return out;
 }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline bool __all_sync(unsigned mask, bool p) {
+  return __ballot_sync(mask, p) == __ballot_sync(mask, true);
+}
+inline GroupBarrier g_block_bar;
+inline void __syncthreads() { g_block_bar.wait(static_cast<int>(blockDim.x)); }
 template <class F> void emulate_launch(dim3 grid, int threads, size_t shared, F f) {
   std::vector<unsigned char> smem(shared);
   blockDim = {static_cast<unsigned>(threads), 1, 1};
@@ -103,6 +117,36 @@ template <class F> void emulate_launch(dim3 grid, int threads, size_t shared, F 
 }
 """
 
+# <cuda_pipeline.h>: each thread keeps its own copies, grouped by commit; a
+# wait for all but the newest `prior` groups performs the older groups'
+# copies then (zero-filling the last `zfill` bytes of each).
+PIPELINE = r"""
+#pragma once
+#include <cstring>
+#include <deque>
+#include <vector>
+struct PendingCopy { void* dst; const void* src; size_t size, zfill; };
+inline thread_local std::vector<PendingCopy> g_pipe_open;
+inline thread_local std::deque<std::vector<PendingCopy>> g_pipe_groups;
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size,
+                                    size_t zfill = 0) {
+  g_pipe_open.push_back({dst, src, size, zfill});
+}
+inline void __pipeline_commit() {
+  g_pipe_groups.push_back(std::move(g_pipe_open));
+  g_pipe_open.clear();
+}
+inline void __pipeline_wait_prior(size_t prior) {
+  while (g_pipe_groups.size() > prior) {
+    for (const PendingCopy& c : g_pipe_groups.front()) {
+      std::memcpy(c.dst, c.src, c.size - c.zfill);
+      std::memset(static_cast<char*>(c.dst) + c.size - c.zfill, 0, c.zfill);
+    }
+    g_pipe_groups.pop_front();
+  }
+}
+"""
+
 _SHARED = "extern __shared__ __align__(16) unsigned char smem_raw[];"
 _LAUNCH = re.compile(
     r"(\w+_kernel<[^>]*>)<<<grid, kThreads, kShared, s>>>\(([^;]*)\);")
@@ -115,6 +159,7 @@ def build_host_library(src_name: str, out: Path) -> ctypes.CDLL | None:
     if cxx is None:
         return None
     (out / "cuda_runtime.h").write_text(EMULATION)
+    (out / "cuda_pipeline.h").write_text(PIPELINE)
     shutil.copy(CSRC / "lanes.cuh", out / "lanes.cuh")
     src = (CSRC / src_name).read_text()
     src, n_shared = re.subn(re.escape(_SHARED),

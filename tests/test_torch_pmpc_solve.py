@@ -168,7 +168,7 @@ def test_trial_count_and_work():
     assert flops == B * (50 * N + 23 + 2 * (tps._backward_counts(N, w_nz)
                                              + 10)) + \
         int(trials.sum()) * (75 * N + 80)
-    ins = sum(a.size for a in args) - 2 * 36 * B + 7 * B   # Ad/Sd: 7 read
+    ins = sum(a.size for a in args)   # Ad/Sd whole: the guard reads them
     assert nbytes == (ins + (N * 2 + 2) * B) * 8
 
 
