@@ -53,7 +53,25 @@ Phases, each of which raises on failure (so the script exits non-zero):
    from rest, and success within 1 cm (LMPC_SUCCESS_*);
 12. lmpc-fallback: `LMPCBatch(use_kernel=False)` at B=4000 for a few steps,
    closed-form and autodiff linearisation, on the Riccati kernel at nz=10;
-13. times (printed, not gated): each kernel and its plain version per call
+13. pmpc-eval: `make_pmpc_batch_evaluator()` at its defaults on the
+   calibrated tray-object contact plant for 2500 steps (5 s simulated) at
+   B=4096 in float32, rows from `random_scenarios(default_rng(0), 4096)`,
+   gated on finite controls within |u| <= 0.6 + 1e-6, >= 450 `pmpc_solve`
+   launches and no call of its plain version; prints success within 1 cm,
+   the lanes that toppled or left the tray, and the times per plant step
+   and per control step;
+14. rmpc-eval: `make_rmpc_batch_evaluator()` on the same rows, 2500
+   steps with the per-lane rescue off, gated on finite controls within
+   |u| <= 0.4 + 1e-6 and >= 450 `rmpc_solve` launches, printing the same
+   and the lanes the kernel leaves flagged at each control step; then at
+   its defaults (rescue on) for its first 265 steps, printing the
+   rescue's lanes and seconds (the defaults over 2500 steps take ~1 h on
+   the card, out of the time limit);
+15. sweep: the CLI `python -m dart_tpu_torch.cli.sweep --controller rmpc
+   --batch_major --runtime 10` (18 rows padded to 128) on the legacy and on
+   the calibrated lag, each gated on converging as many rows as JAX's own
+   batch evaluator does on the CPU (JAX_SWEEP), rows printed beside JAX's;
+16. times (printed, not gated): each kernel and its plain version per call
    (CUDA events), each kernel's device time per launch (torch.profiler),
    the closed-loop steps (host clock), and each kernel's launch geometry
    (threads, lanes and shared bytes per block, resident blocks per SM).
@@ -67,11 +85,14 @@ JSON.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1499,6 +1520,24 @@ def phase_profile(dev: torch.device, card: str) -> None:
         lmpc_step()
     traced_steps(lmpc_step, 20, card, "LMPC closed loop, steps 200-220")
 
+    from dart_tpu_torch.physics import tray_object as to
+    from dart_tpu_torch.rollout import evaluate
+
+    sc = eval_scenarios(dev)
+    params = evaluate._tray_params(sc.kappa_inv, sc.mass, sc.mu,
+                                   torch.float32)
+    u = torch.full((B, 2), 0.05, dtype=torch.float32, device=dev)
+    cst = {"s": to.init_state(device=dev, batch=B)}
+
+    def plant_step():
+        to.observe_world(cst["s"], params)
+        cst["s"] = to.step(cst["s"], u, params, DT)
+
+    for _ in range(50):
+        plant_step()
+    traced_steps(plant_step, 50, card,
+                 "calibrated contact plant (observe + step), steps 50-100")
+
 
 def phase_scan(dev: torch.device, card: str) -> None:
     """Device ms per launch (torch.profiler), float32, of `riccati_backward`
@@ -1530,8 +1569,459 @@ def phase_scan(dev: torch.device, card: str) -> None:
               f"ms per launch [{card}]")
 
 
+# --------------------------------------------------------------------------
+# The batch evaluators on the tray-object contact plant, and the sweep CLI
+# --------------------------------------------------------------------------
+
+EVAL_STEPS = 2500   # the evaluators' default n_steps (5 s simulated)
+EVAL_SOLVES = 450   # (2500 - 250 warm-up steps) / 5 steps per control step
+SWEEP_RUNTIME = 10.0
+SWEEP_SOLVES = 950  # (5000 - 250) / 5
+# JAX's own batch-major RMPC sweep of the same 18 rows at 10 s, on the CPU
+# in float32 through `make_rmpc_batch_evaluator(use_kernel=False)`:
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_evaluate.py \
+#       {calibrated,legacy} 10
+# Each sweep run is gated on converging at least as many rows as JAX does.
+# On the legacy lag JAX converges 14 of 18: the mu=0.2 cube and cylinder
+# rows end 48.5 and 21.3 mm out. The 18/18 of the JAX package's r2
+# artifact (artifacts/sweep_rmpc_batch_major_r2.json) predates its r3
+# exact (ZOH) lag update.
+JAX_SWEEP = {
+    "calibrated": {
+        "n_converged": 18,
+        "sse_mm": [9.997, 9.997, 9.997, 9.966, 9.994, 9.995, 9.945, 9.995,
+                   9.998, 9.972, 9.984, 9.999, 9.998, 9.902, 9.988, 9.951,
+                   9.907, 9.93],
+        "conv_time_s": [2.07, 3.058, 6.018, 2.114, 3.186, 5.664, 1.41, 2.798,
+                        5.308, 1.466, 2.624, 5.2, 1.43, 1.4, 1.772, 1.442,
+                        1.4, 1.818]},
+    "legacy": {
+        "n_converged": 14,
+        "sse_mm": [9.974, 9.943, 48.474, 9.974, 9.943, 48.474, 9.99, 9.988,
+                   21.311, 9.99, 9.988, 21.311, 9.968, 9.949, 9.957, 9.968,
+                   9.949, 9.957],
+        "conv_time_s": [2.278, 2.814, None, 2.278, 2.814, None, 1.962, 3.188,
+                        None, 1.962, 3.188, None, 1.496, 1.252, 1.21, 1.496,
+                        1.252, 1.21]},
+}
+SWEEP_ARTIFACT = (Path(__file__).resolve().parent / "artifacts"
+                  / "sweep_rmpc_batch_major_r2.json")
+
+
+@contextlib.contextmanager
+def plant_watch(dev: torch.device):
+    """Wrap `tray_object.step`, which the evaluators call through the
+    module, to record per lane whether the object ever toppled or left the
+    tray, and the largest |u| and the non-finite entries among the applied
+    controls. Adds ~10 small device ops to each plant step, so the phases
+    gate on a watched run and time another, unwatched one."""
+    from dart_tpu_torch.physics import tray_object as to
+
+    step = to.step
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    w = {"toppled": torch.zeros(B, dtype=torch.bool, device=dev),
+         "off": torch.zeros(B, dtype=torch.bool, device=dev),
+         "umax": zero.clone(), "nonfinite": zero.clone()}
+
+    def watched(s, u, params, dt):
+        s2 = step(s, u, params, dt)
+        w["toppled"] |= s2.toppled
+        w["off"] |= to.off_tray(s2)
+        w["umax"] = torch.maximum(w["umax"], u.abs().amax())
+        w["nonfinite"] += (~torch.isfinite(u)).sum()
+        return s2
+
+    to.step = watched
+    try:
+        yield w
+    finally:
+        to.step = step
+
+
+@contextlib.contextmanager
+def count_calls(module, name: str):
+    """Count the calls of `module.name` (a module-level function the
+    wrappers look up at call time)."""
+    fn = getattr(module, name)
+    box = [0]
+
+    def counted(*a, **k):
+        box[0] += 1
+        return fn(*a, **k)
+
+    setattr(module, name, counted)
+    try:
+        yield box
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def rescue_watch():
+    """Count and time (host clock, synchronised) `RMPCBatch._rescue`, the
+    per-lane `ilqr.solve_batch` of the lanes the kernel left flagged."""
+    from dart_tpu_torch.control import mpc
+
+    orig = mpc.RMPCBatch._rescue
+    st = {"calls": 0, "lanes": 0, "s": 0.0}
+
+    def timed(self, bad, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(self, bad, *a)
+        torch.cuda.synchronize()
+        st["s"] += time.perf_counter() - t0
+        st["calls"] += 1
+        st["lanes"] += int(bad.sum())
+        return out
+
+    mpc.RMPCBatch._rescue = timed
+    try:
+        yield st
+    finally:
+        mpc.RMPCBatch._rescue = orig
+
+
+def eval_scenarios(dev: torch.device):
+    """B rows of `random_scenarios(np.random.default_rng(0), B)`: shape,
+    mass U(0.5, 3) kg, mu U(0.05, 0.2), target U(-0.1, 0.1)^2 m."""
+    from dart_tpu_torch.io import scenes
+
+    return scenes.random_scenarios(np.random.default_rng(0), B, device=dev)
+
+
+def plant_step_ms(sc, dev: torch.device, n: int = 500) -> float:
+    """Host-clock ms of one calibrated contact-plant step alone (`step` at
+    B lanes; the evaluators observe only at control steps), synchronised
+    over n steps."""
+    from dart_tpu_torch.physics import tray_object as to
+    from dart_tpu_torch.rollout import evaluate
+
+    params = evaluate._tray_params(sc.kappa_inv, sc.mass, sc.mu,
+                                   torch.float32)
+    s = to.init_state(device=dev, batch=B)
+    u = torch.full((B, 2), 0.05, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for k in range(50 + n):
+            if k == 50:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            s = to.step(s, u, params, DT)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def timed_eval(ev, sc):
+    """One evaluator call on the scenario rows, synchronised; returns
+    (result, host-clock seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ev(sc.kappa_inv, sc.mass, sc.mu, sc.target_xy)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def eval_report(label: str, res, res_w, w: dict, wall: float,
+                wall_w: float, plant_ms: float, card: str,
+                u_bound: float) -> dict:
+    """Print an evaluator's quality and times: `res` and `wall` from the
+    unwatched run, `res_w`, `wall_w` and the watch `w` from the watched
+    one. Raise on non-finite or out-of-bound controls and non-finite
+    results."""
+    m = res.metrics
+    success = float((m.steady_state_error < 0.01).float().mean())
+    conv = float(m.converged.float().mean())
+    toppled = float(w["toppled"].float().mean())
+    off = float(w["off"].float().mean())
+    lost = float((w["toppled"] | w["off"]).float().mean())
+    step_ms = wall / EVAL_STEPS * 1e3
+    ctrl_ms = (wall - EVAL_STEPS * plant_ms / 1e3) / EVAL_SOLVES * 1e3
+    dp = float((res.final_p - res_w.final_p).abs().max())
+    print(f"[{label}] {EVAL_STEPS} steps at B={B}, float32, unwatched: "
+          f"{wall:.3f} s wall, {step_ms:.4f} ms per plant step of the loop; "
+          f"the plant alone {plant_ms:.4f} ms per step, so {ctrl_ms:.4f} ms "
+          f"per control step beyond it ({EVAL_SOLVES} control steps; host "
+          f"clock) [{card}]; the watched run {wall_w:.3f} s, max |final p| "
+          f"difference from it {dp:.3e}")
+    print(f"[{label}] success@1cm (final error) {success:.4f}, converged "
+          f"(within 1 cm at some step) {conv:.4f}, mean final error "
+          f"{float(m.steady_state_error.mean()) * 1e3:.4f} mm; lanes that "
+          f"toppled {toppled:.4f}, left the tray {off:.4f}, either "
+          f"{lost:.4f}")
+    print(f"[{label}] max|u| {float(w['umax']):.6f} (limit {u_bound} + "
+          f"1e-6), non-finite controls {int(w['nonfinite'])}")
+    if int(w["nonfinite"]) != 0:
+        raise AssertionError(f"{label}: non-finite controls")
+    if not float(w["umax"]) <= u_bound + 1e-6:
+        raise AssertionError(f"{label}: a control left the tilt bound")
+    if not (bool(torch.isfinite(res.final_p).all())
+            and bool(torch.isfinite(res_w.final_p).all())) or \
+            tuple(m.steady_state_error.shape) != (B,):
+        raise AssertionError(f"{label}: non-finite or misshapen results")
+    return {"wall": wall, "wall_watched": wall_w, "step_ms": step_ms,
+            "plant_ms": plant_ms, "ctrl_ms": ctrl_ms, "success": success,
+            "lost": lost}
+
+
+def phase_pmpc_eval(dev: torch.device, card: str) -> dict:
+    """`make_pmpc_batch_evaluator()` at its defaults (N=15, u_bound 0.6, 2x3
+    kernel budget, a solve every 5 steps after 250 at rest) on the
+    calibrated contact plant, 2500 steps at B=4096, float32."""
+    from dart_tpu_torch.ops.kernels import pmpc_solve as kps
+    from dart_tpu_torch.rollout import evaluate
+
+    sc = eval_scenarios(dev)
+    ev = evaluate.make_pmpc_batch_evaluator()
+    with count_calls(kps, "pmpc_solve_reference") as plain:
+        kps.pmpc_solve.launches = 0
+        res, wall = timed_eval(ev, sc)
+        launches = kps.pmpc_solve.launches
+        with plant_watch(dev) as w:
+            res_w, wall_w = timed_eval(ev, sc)
+    out = eval_report("pmpc-eval", res, res_w, w, wall, wall_w,
+                      plant_step_ms(sc, dev), card, 0.6)
+    print(f"[pmpc-eval] pmpc_solve launches {launches} (gate >= "
+          f"{EVAL_SOLVES}), plain-version calls {plain[0]} (gate 0)")
+    if launches < EVAL_SOLVES:
+        raise AssertionError(f"only {launches} pmpc_solve launches")
+    if plain[0] != 0:
+        raise AssertionError("the plain pmpc_solve ran on the card")
+    return {**out, "launches": launches}
+
+
+@contextlib.contextmanager
+def flag_watch():
+    """Record, per `RMPCBatch.solve_batched` call, the lanes the kernel
+    leaves flagged (viol > tol_con or gnorm > kernel_tol_grad after the
+    escalation: the lanes the per-lane rescue takes on when it is on), the
+    final gnorm per lane, and the inputs of the call's first `rmpc_solve`
+    round (kept on the card, ~2.4 MB a control step at B=4096), for
+    `rescue_witness`."""
+    from dart_tpu_torch.control import mpc
+
+    orig, kern = mpc.RMPCBatch.solve_batched, mpc.rmpc_solve
+    log = {"bad": [], "gnorm": [], "args": []}
+    first = []
+
+    def kernel(*a, **k):
+        if not first:
+            first.append((a, k))
+        return kern(*a, **k)
+
+    def watched(self, *a, **k):
+        first.clear()
+        carry, u, diag = orig(self, *a, **k)
+        log["bad"].append(~(diag.viol <= self.cfg.tol_con)
+                          | ~(diag.grad_norm <= self.kernel_tol_grad))
+        log["gnorm"].append(diag.grad_norm)
+        log["args"].append(first[0])
+        log["tol"] = (self.cfg.tol_con, self.kernel_tol_grad,
+                      self.kernel_max_extra_rounds)
+        return carry, u, diag
+
+    mpc.RMPCBatch.solve_batched = watched
+    mpc.rmpc_solve = kernel
+    try:
+        yield log
+    finally:
+        mpc.RMPCBatch.solve_batched = orig
+        mpc.rmpc_solve = kern
+
+
+WITNESS_STEPS = 12  # flagged control steps sampled, spread over the run
+WITNESS_LANES = 16  # flagged lanes per sampled step, and as many unflagged
+
+
+def rescue_witness(log: dict) -> dict:
+    """Whether the lanes the kernel leaves flagged on the contact plant are
+    the algorithm's or the kernel's: at WITNESS_STEPS flagged control steps
+    of the rescue-off run, take up to WITNESS_LANES flagged lanes and as
+    many unflagged ones, and run `rmpc_solve_reference` (the plain version)
+    from the kernel's own first-round inputs through the same escalation
+    (`mpc._escalate`, the same test, the same extra rounds), in float32
+    and float64, on the host's CPU (~4-5 s a round at a few hundred lanes;
+    ~11 s a call on the card at any lane count). Counts the lanes it
+    leaves flagged among each group."""
+    from dart_tpu_torch.control import mpc
+    from dart_tpu_torch.ops.kernels.rmpc_solve import rmpc_solve_reference
+
+    bad = torch.stack(log["bad"]).cpu()
+    gnorm = torch.stack(log["gnorm"]).cpu()
+    hit = torch.nonzero(bad.any(1)).squeeze(1)
+    at = torch.linspace(0, len(hit) - 1, min(WITNESS_STEPS, len(hit)))
+    steps = hit[at.round().long()].unique().tolist()
+    rng = np.random.default_rng(0)
+    cols, kflag, kgn = [], [], []
+    for s in steps:
+        fl = torch.nonzero(bad[s]).squeeze(1).numpy()
+        ok = torch.nonzero(~bad[s]).squeeze(1).numpy()
+        f = rng.choice(fl, min(WITNESS_LANES, len(fl)), replace=False)
+        lanes = np.concatenate([f, rng.choice(ok, len(f), replace=False)])
+        a, kw = log["args"][s]
+        idx = torch.as_tensor(lanes, device=a[0].device)
+        cols.append([x.index_select(-1, idx).cpu() for x in a])
+        kflag.append(np.arange(len(lanes)) < len(f))
+        kgn.append(gnorm[s, lanes].numpy())
+    ins = [torch.cat(c, -1) for c in zip(*cols)]
+    kflag, kgn = np.concatenate(kflag), np.concatenate(kgn)
+    tol_con, tol_grad, extra = log["tol"]
+    nf = int(kflag.sum())
+    print(f"[rmpc-eval] witness: {len(steps)} flagged control steps "
+          f"{steps}; {nf} lanes the kernel left flagged (median gnorm "
+          f"{float(np.median(kgn[kflag])):.3e}) and {nf} it did not")
+    out = {"steps": len(steps), "flagged": nf}
+    for dtype in (torch.float32, torch.float64):
+        x = [t.to(dtype) for t in ins]
+
+        def one_round(V):
+            Vn, cost, viol, gn = rmpc_solve_reference(
+                *x[:4], torch.movedim(V, 0, -1).contiguous(), **kw)
+            return torch.movedim(Vn, -1, 0), cost, viol, gn
+
+        def needs_help(st):
+            return ~(torch.max(st[2]) <= tol_con) | \
+                ~(torch.max(st[3]) <= tol_grad)
+
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            (_, _, viol, gn), rounds = mpc._escalate(
+                one_round, one_round(torch.movedim(x[4], -1, 0)),
+                needs_help, extra)
+        pflag = (~(viol <= tol_con) | ~(gn <= tol_grad)).numpy()
+        name = str(dtype).split(".")[-1]
+        both = int((pflag & kflag).sum())
+        extra_lanes = int((pflag & ~kflag).sum())
+        print(f"[rmpc-eval] witness, the plain version in {name} on the "
+              f"CPU, {1 + rounds} rounds, {time.perf_counter() - t0:.1f} s:"
+              f" leaves {both} of the {nf} kernel-flagged lanes flagged "
+              f"(median gnorm {float(gn[kflag].median()):.3e}) and "
+              f"{extra_lanes} of the {nf} others")
+        out[name] = {"flagged": both, "others": extra_lanes}
+    return out
+
+
+RESCUE_STEPS = 265  # three control steps after the warm-up: two rescues
+
+
+def phase_rmpc_eval(dev: torch.device, card: str) -> dict:
+    """`make_rmpc_batch_evaluator()` (N=20, 6x4x3, <= 2 extra rounds, freeze
+    at 1 cm) on the same rows: 2500 steps with the per-lane rescue off
+    (`kernel_xla_fallback=False`), timed unwatched, then watched, counting
+    the lanes the kernel leaves flagged at each control step and holding a
+    sample of them to the plain version (`rescue_witness`), then at its
+    defaults (rescue on) for its first RESCUE_STEPS steps, timing the
+    rescue. The defaults over all 2500 steps do not fit the time limit: on
+    these rows the kernel leaves lanes flagged at most control steps, and
+    the port's rescue (the host-looped `ilqr.solve_batch`) takes ~10-25 s
+    a call on the card whatever the lane count (PERF.md section 5)."""
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.ops.kernels.rmpc_solve import rmpc_solve
+    from dart_tpu_torch.rollout import evaluate
+
+    sc = eval_scenarios(dev)
+    ev = evaluate.make_rmpc_batch_evaluator(kernel_xla_fallback=False)
+    rmpc_solve.launches = 0
+    res, wall = timed_eval(ev, sc)
+    launches = rmpc_solve.launches
+    with plant_watch(dev) as w, flag_watch() as flags:
+        res_w, wall_w = timed_eval(ev, sc)
+    out = eval_report("rmpc-eval", res, res_w, w, wall, wall_w,
+                      plant_step_ms(sc, dev), card, 0.4)
+    flagged = torch.stack(flags["bad"]).sum(1).cpu().numpy()
+    hit = np.nonzero(flagged)[0]
+    print(f"[rmpc-eval] rescue off: rmpc_solve launches {launches} (gate >= "
+          f"{EVAL_SOLVES}); flagged lanes at {len(hit)} of {len(flagged)} "
+          f"control steps, {int(flagged.sum())} lane-solves, the first ten "
+          f"{flagged[:10].tolist()}, max {int(flagged.max())}, the last "
+          f"flagged at control step {hit[-1:].tolist()}")
+    if launches < EVAL_SOLVES:
+        raise AssertionError(f"only {launches} rmpc_solve launches")
+    witness = rescue_witness(flags)
+    del flags
+
+    ev = evaluate.make_rmpc_batch_evaluator(n_steps=RESCUE_STEPS)
+    with plant_watch(dev) as w2, rescue_watch() as rs:
+        riccati_backward.launches = 0
+        rmpc_solve.launches = 0
+        t0 = time.perf_counter()
+        res2 = ev(sc.kappa_inv, sc.mass, sc.mu, sc.target_xy)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+        ric, launches2 = riccati_backward.launches, rmpc_solve.launches
+    per_call = rs["s"] / max(rs["calls"], 1)
+    print(f"[rmpc-eval] defaults (rescue on), {RESCUE_STEPS} steps, "
+          f"watched: {wall2:.3f} s wall, {launches2} rmpc_solve launches; rescues "
+          f"{rs['calls']} of {rs['lanes']} lanes in all, {rs['s']:.3f} s "
+          f"({per_call:.3f} s a call), {ric} Riccati launches; at that rate "
+          f"the {len(hit)} flagged control steps of the full run would add "
+          f"{len(hit) * per_call:.0f} s [{card}]")
+    if rs["calls"] == 0 or ric == 0:
+        raise AssertionError("the default evaluator ran no rescue")
+    if int(w2["nonfinite"]) != 0 or not float(w2["umax"]) <= 0.4 + 1e-6 or \
+            not bool(torch.isfinite(res2.final_p).all()):
+        raise AssertionError("rmpc-eval with the rescue: non-finite or "
+                             "out-of-bound controls or results")
+    return {**out, "launches": launches, "flagged_steps": len(hit),
+            "riccati": ric, "rescue_lanes": rs["lanes"],
+            "rescue_s": rs["s"], "witness": witness}
+
+
+def phase_sweep(dev: torch.device, card: str) -> dict:
+    """`python -m dart_tpu_torch.cli.sweep --controller rmpc --batch_major
+    --runtime 10` (18 rows padded to 128) through the CLI's `main`, on the
+    legacy and on the calibrated lag, each gated on converging as many rows
+    as JAX's own evaluator does (JAX_SWEEP)."""
+    from dart_tpu_torch.cli import sweep as cli
+    from dart_tpu_torch.ops.kernels.rmpc_solve import rmpc_solve
+
+    artifact = json.loads(SWEEP_ARTIFACT.read_text())["scenarios"]
+    out = {}
+    for lag in ("legacy", "calibrated"):
+        buf = io.StringIO()
+        rmpc_solve.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["--controller", "rmpc", "--batch_major",
+                           "--runtime", str(SWEEP_RUNTIME), "--tray_lag",
+                           lag])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = rmpc_solve.launches
+        rows = json.loads(buf.getvalue())["scenarios"]
+        ref = JAX_SWEEP[lag]
+        n_conv = sum(r["converged"] for r in rows)
+        print(f"[sweep] --tray_lag {lag} --runtime {SWEEP_RUNTIME}: "
+              f"{n_conv}/{len(rows)} converged (gate >= JAX's "
+              f"{ref['n_converged']}), {launches} rmpc_solve launches, "
+              f"{wall:.3f} s wall [{card}]")
+        for i, r in enumerate(rows):
+            line = (f"[sweep]   {r['object']:8s} m={r['mass']:.0f} "
+                    f"mu={r['mu']:.2f}: sse {r['sse_mm']:7.2f} mm, conv "
+                    f"{r['conv_time_s']} s; JAX (CPU) {ref['sse_mm'][i]:7.3f}"
+                    f" mm, {ref['conv_time_s'][i]} s")
+            if lag == "legacy":
+                a = artifact[i]
+                line += (f"; r2 artifact {a['sse_mm']} mm, "
+                         f"{a['conv_time_s']} s")
+            print(line)
+        if rc != 0:
+            raise AssertionError(f"the sweep CLI returned {rc}")
+        if len(rows) != 18:
+            raise AssertionError(f"{len(rows)} sweep rows, not 18")
+        if launches < SWEEP_SOLVES:
+            raise AssertionError(f"only {launches} rmpc_solve launches in "
+                                 "the sweep")
+        if n_conv < ref["n_converged"]:
+            raise AssertionError(f"{lag} sweep converged {n_conv} rows, JAX "
+                                 f"{ref['n_converged']}")
+        out[lag] = {"n_converged": n_conv, "launches": launches,
+                    "wall": wall}
+    return out
+
+
 PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
-          "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "times")
+          "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "pmpc-eval",
+          "rmpc-eval", "sweep", "times")
 # Run only when named: the device-time breakdown behind PERF.md section 5,
 # and the Riccati and PMPC kernels' device time against horizon, budget and
 # batch.
@@ -1559,6 +2049,12 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
         res["lmpc_main"] = phase_lmpc_main(dev, card)
     elif ph == "lmpc-fallback":
         res["lmpc_fallback"] = phase_lmpc_fallback(dev, card)
+    elif ph == "pmpc-eval":
+        res["pmpc_eval"] = phase_pmpc_eval(dev, card)
+    elif ph == "rmpc-eval":
+        res["rmpc_eval"] = phase_rmpc_eval(dev, card)
+    elif ph == "sweep":
+        res["sweep"] = phase_sweep(dev, card)
     elif ph == "times":
         res["pmpc_times"] = phase_times(dev, card)
         res["times"] = phase_kernel_times(dev, card)

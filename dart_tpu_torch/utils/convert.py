@@ -3,7 +3,9 @@
 The PMPC, RMPC and LMPC batch paths have no trained weights: what crosses
 over are the tuning tables, the per-lane params and cost data, the carries
 (the RLS estimates, the governor's reference, the stiction integral and
-the LMPC plan index included) and the solve diagnostics, all NamedTuples
+the LMPC plan index included), the solve diagnostics, the contact plant's
+params and state (its bool `toppled` stays bool), the scenario batches and
+the evaluators' metrics and sweep aggregates, all NamedTuples
 with the same names and fields in both packages; NamedTuples nest
 (`RMPCCarry` holds two `RLSState`s). Arrays cross as numpy; python floats
 stay python floats (so a static gravity stays static), and None stays
@@ -21,14 +23,22 @@ from dart_tpu_torch.adapt.rls import RLSState
 from dart_tpu_torch.control.mpc import (LMPCCarry, LMPCWeights, PMPCCarry,
                                         PMPCWeights, RMPCCarry, RMPCWeights,
                                         SolveDiag)
+from dart_tpu_torch.io.scenes import ScenarioBatch
 from dart_tpu_torch.models.dynamics import PMPCParams, RMPCParams
+from dart_tpu_torch.parallel.sweep import SweepAggregate
+from dart_tpu_torch.physics.tray_object import (TrayObjectParams,
+                                                TrayObjectState)
+from dart_tpu_torch.rollout.evaluate import PMPCScenarioResult
+from dart_tpu_torch.rollout.metrics import Metrics
 from dart_tpu_torch.solver.ilqr import ILQRSolution
 from dart_tpu_torch.solver.ocp import LMPCAux, PMPCAux, RMPCAux
 
 _TUPLES = {cls.__name__: cls for cls in
            (PMPCParams, PMPCAux, PMPCWeights, PMPCCarry, SolveDiag,
             RMPCParams, RMPCAux, RMPCWeights, RMPCCarry, RLSState,
-            ILQRSolution, LMPCAux, LMPCWeights, LMPCCarry)}
+            ILQRSolution, LMPCAux, LMPCWeights, LMPCCarry,
+            TrayObjectParams, TrayObjectState, Metrics, ScenarioBatch,
+            PMPCScenarioResult, SweepAggregate)}
 
 
 def _is_namedtuple(x) -> bool:
