@@ -71,7 +71,26 @@ Phases, each of which raises on failure (so the script exits non-zero):
    --batch_major --runtime 10` (18 rows padded to 128) on the legacy and on
    the calibrated lag, each gated on converging as many rows as JAX's own
    batch evaluator does on the CPU (JAX_SWEEP), rows printed beside JAX's;
-16. times (printed, not gated): each kernel and its plain version per call
+16. solve: the port's `ilqr.solve` (`vmap(solve)` of the JAX package on a
+   lane axis, every backward pass one `riccati_backward` launch) on the
+   PMPC, slew-exact RMPC and LMPC OCPs of the commands at B=18 and B=1,
+   held to the same call on CPU tensors (float64 at the evaluators'
+   budgets to 1e-9; float32 on one iteration, 99th percentile 1e-4, and
+   the PMPC solve at the full budget on its iterations and costs, its
+   spread printed), with the Riccati launches and host reads
+   per solve, no plain Riccati call on the card, argmin on NaN and ties, a
+   NaN lane under the parallel line search, and the kernel's time per call
+   at B=1 and B=18;
+17. pmpc-cli, rmpc-cli: `python -m dart_tpu_torch.cli pmpc|rmpc` at the
+   default scenario and CLI_RUNTIME (four episodes each), gated on
+   `converged`, the steady-state error and the control effort of JAX's
+   own command on the CPU (JAX_CLI), and for rmpc on its controls
+   (`--save`), printing the ms per control step, launches and host reads;
+18. sweep-instance: `python -m dart_tpu_torch.cli.sweep --runtime
+   SWEEP_INSTANCE_RUNTIME` (the per-scenario PMPC evaluator, 18 lanes),
+   gated on JAX's own row count and each row's error and effort
+   (JAX_SWEEP_INSTANCE);
+19. times (printed, not gated): each kernel and its plain version per call
    (CUDA events), each kernel's device time per launch (torch.profiler),
    the closed-loop steps (host clock), and each kernel's launch geometry
    (threads, lanes and shared bytes per block, resident blocks per SM).
@@ -90,6 +109,7 @@ import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -847,7 +867,7 @@ def phase_rmpc_main(dev: torch.device, card: str) -> dict:
     ctlr = rmpc_controller()
     tol_con = ctlr.cfg.tol_con
     x = torch.zeros((B, 6), dtype=torch.float32, device=dev)
-    carry = ctlr.init_carry_batch(x[:, :4])
+    carry = ctlr.init_carry(x[:, :4])
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     nonfinite, umax, dumax = zero.clone(), zero.clone(), zero.clone()
     uncert, iters, rescue_steps = [], [], 0
@@ -960,7 +980,7 @@ def phase_rescue(dev: torch.device) -> int:
         ctlr = rmpc_controller(kernel_iters=1, kernel_alphas=2,
                                kernel_al_rounds=1, kernel_max_extra_rounds=0,
                                kernel_xla_fallback=fallback)
-        carry = ctlr.init_carry_batch(states)
+        carry = ctlr.init_carry(states)
         carry = carry._replace(
             rls_x=RLSState(theta=th[:, :7], P=carry.rls_x.P),
             rls_y=RLSState(theta=th[:, 7:], P=carry.rls_y.P))
@@ -1314,7 +1334,7 @@ def phase_lmpc_main(dev: torch.device, card: str) -> dict:
     plant = loop.lmpc_plant_step(pv, LMPC_DT)
     ctlr = lmpc_controller()
     x = torch.zeros((B, 8), dtype=torch.float32, device=dev)
-    carry = ctlr.init_carry_batch(B, torch.float32, dev)
+    carry = ctlr.init_carry(B, torch.float32, dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     nonfinite, umax = zero.clone(), zero.clone()
     iters, checkpoints = [], {}
@@ -1403,7 +1423,7 @@ def phase_lmpc_fallback(dev: torch.device, card: str) -> int:
     for fast in (True, False):
         ctlr = lmpc_controller(fast=fast)
         x = torch.zeros((B2, 8), dtype=torch.float32, device=dev)
-        carry = ctlr.init_carry_batch(B2, torch.float32, dev)
+        carry = ctlr.init_carry(B2, torch.float32, dev)
         riccati_backward.launches = 0
         umax = 0.0
         t0 = time.perf_counter()
@@ -1480,7 +1500,7 @@ def phase_profile(dev: torch.device, card: str) -> None:
     ctlr = rmpc_controller()
     solve_fn = loop.rmpc_solve_fn(ctlr, targets4)
     x = torch.zeros((B, 6), dtype=torch.float32, device=dev)
-    st = {"c": ctlr.init_carry_batch(x[:, :4]), "x": x}
+    st = {"c": ctlr.init_carry(x[:, :4]), "x": x}
 
     def rmpc_step():
         st["c"], st["x"], _ = loop.run_batch_closed_loop(
@@ -1509,7 +1529,7 @@ def phase_profile(dev: torch.device, card: str) -> None:
     lctlr = lmpc_controller()
     lfn = loop.lmpc_solve_fn(lctlr, tg, pv)
     lplant = loop.lmpc_plant_step(pv, LMPC_DT)
-    lst = {"c": lctlr.init_carry_batch(B, torch.float32, dev),
+    lst = {"c": lctlr.init_carry(B, torch.float32, dev),
            "x": torch.zeros((B, 8), dtype=torch.float32, device=dev)}
 
     def lmpc_step():
@@ -2019,9 +2039,503 @@ def phase_sweep(dev: torch.device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Single-lane solve (`ilqr.solve` on a lane axis) and the commands on it
+# ---------------------------------------------------------------------------
+
+SOLVE_B = 18        # the sweep grid's rows
+SOLVE_NAN_LANE = 5
+# float64: the card and the CPU run the same iterations at the
+# evaluators' budgets; the Riccati kernel and its plain version differ by
+# FMA contraction (far inside 1e-10 per backward pass), so V agrees to
+# 1e-9 on every lane. float32: a few ulps per operation. Once a lane nears
+# its optimum its trials differ from its cost at float32's resolution, and
+# near an active tilt, slew or velocity bound the box QP's KKT tests (at
+# 1e-9) are below it too, so which trial or active set wins is a coin toss
+# either side may call otherwise: on an H100 at 700 W the PMPC lanes
+# differed by up to 3.8e-3 between the card and the CPU (99th percentile
+# 1.5e-3 at 10 iterations, 7.8e-4 at 3; PERF.md section 6), and the CPU's
+# own float32 solve differs from its float64 one as much. So float32 is held on one
+# iteration (one AL round), before any lane reaches that floor: the bulk
+# at 1e-4 (99th percentile of |dV| over every entry), the lanes past 1e-3
+# printed. The PMPC solve at the full budget is held on what the tie
+# leaves alone: the same iterations on every lane and each lane's cost
+# (the trials tie there; 1.9e-7 relative apart on an H100 at 700 W) to
+# 1e-5 relative; its |dV| and the CPU's float32-vs-float64 spread are
+# printed.
+SOLVE_F64_TOL = 1e-9
+SOLVE_F32_P99 = 1e-4
+SOLVE_F32_COST_RTOL = 1e-5
+SOLVE_F32_ITERS = 1
+# The single-lane path is host-bound: a control step took ~2 s (PMPC) and
+# ~12 s (RMPC, 30 iterations) on an H100 at 700 W (PERF.md section 5), so
+# each command runs one or two control steps after its 250 steps of rest,
+# four episodes each (a warm call and 3 timed ones), and the sweep two. JAX's
+# own commands on the CPU at these runtimes, float32 (script mode of
+# tests/test_torch_scenario_eval.py):
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_scenario_eval.py
+# In so short an episode nothing converges, and the RMPC command's object
+# has not moved yet (its steady-state error is the starting offset): the
+# gates that see the controller are the PMPC command's steady-state error
+# (its object moved 1.04e-5 m) and control effort, the RMPC command's
+# controls (`--save`; its slew bound, with the sign the solve chose) and
+# effort, and each sweep row's error and effort.
+CLI_RUNTIME = {"pmpc": 0.52, "rmpc": 0.51}
+SWEEP_INSTANCE_RUNTIME = 0.52
+JAX_CLI = {
+    "pmpc": {"converged": False, "convergence_time": None,
+             "steady_state_error": 0.06402076035737991,
+             "control_effort": 0.00870361365377903},
+    "rmpc": {"converged": False, "convergence_time": None,
+             "steady_state_error": 0.0640312135219574,
+             "control_effort": 0.0007071068393997848,
+             "u_cmd": [[-0.05000000074505806, 0.05000000074505806]] * 5},
+}
+JAX_SWEEP_INSTANCE = {
+    "n_converged": 0,
+    "sse_mm": [64.01, 64.02, 64.03, 64.01, 64.02, 64.03, 64.02, 64.02, 64.02,
+               64.02, 64.02, 64.02, 64.03, 64.03, 64.03, 64.03, 64.03, 64.03],
+    "effort": [0.0087, 0.0087, 0.0087, 0.0087, 0.0087, 0.0087, 0.0074, 0.0074,
+               0.0074, 0.0075, 0.0075, 0.0074, 0.004, 0.004, 0.004, 0.0041,
+               0.0041, 0.004]}
+# float32 on the card against JAX's float32 on the CPU, on an H100 at
+# 700 W: the errors and the RMPC controls agreed to every digit; the PMPC
+# effort differed by 6.4e-4 relative (the port on the CPU: 5.9e-5), the
+# second solve's float32 tie (see SOLVE_F32_COST_RTOL).
+CLI_SSE_ATOL = 1e-6         # m, a tenth of the PMPC object's motion
+CLI_EFFORT_RTOL = 5e-3
+CLI_U_ATOL = 1e-6           # rad
+# The sweep prints sse_mm to 2 decimals and effort to 4: one unit of each.
+SWEEP_SSE_MM_ATOL = 0.01
+SWEEP_EFFORT_ATOL = 1e-4
+
+
+def solve_problems(dtype: torch.dtype, dev: torch.device, n: int,
+                   iters: int = 10, rounds: int = 3):
+    """The three single-lane OCPs of the commands on n lanes (the first n
+    of SOLVE_B), as (kind, ocp, cfg, params, aux, z0, V0), from seeded CPU
+    draws: PMPC (`make_pmpc_evaluator`'s controller: N=15, 2 ms, u 0.6,
+    `iters` iterations, 10 in the evaluator) with the sweep grid's
+    friction and per-shape weights per row; slew-exact RMPC
+    (`make_rmpc_evaluator`'s: N=20, `iters` iterations x `rounds` AL
+    rounds, 10 x 3 in the evaluator) with
+    an RLS estimate theta ~ N(0, 0.3); LMPC (N=12, 10 ms, u 0.4, `iters`
+    iterations) on `sample_true_params`. States ~ U(-0.1, 0.1) m and
+    N(0, 0.05) m/s around rest, cold starts V0 = 0."""
+    from dart_tpu_torch.control import mpc
+    from dart_tpu_torch.io import scenes
+    from dart_tpu_torch.models import dynamics as dyn
+    from dart_tpu_torch.rollout import evaluate
+    from dart_tpu_torch.solver import ilqr
+
+    gen = torch.Generator().manual_seed(8)
+
+    def rand(*shape, scale=1.0):
+        return ((torch.rand(shape, generator=gen, dtype=torch.float64)
+                 * 2 - 1) * scale).to(dtype)
+
+    def normal(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, dtype=torch.float64)
+                * scale).to(dtype)
+
+    grid = scenes.sweep_grid(dtype=dtype, device="cpu")
+    out = []
+    # PMPC
+    x = torch.zeros((SOLVE_B, 6), dtype=dtype)
+    x[:, 0], x[:, 2] = rand(SOLVE_B, scale=0.1), rand(SOLVE_B, scale=0.1)
+    x[:, 1], x[:, 3] = normal(SOLVE_B, scale=0.05), normal(SOLVE_B,
+                                                          scale=0.05)
+    x[:, 4] = 0.43
+    tg = torch.zeros((SOLVE_B, 6), dtype=dtype)
+    tg[:, 0], tg[:, 2], tg[:, 4] = 0.05, -0.04, 0.43
+    ctl = mpc.PMPC(N=15, dt=DT, u_bound=0.6,
+                   cfg=ilqr.ILQRConfig(max_iters=iters))
+    w = evaluate._select_weights(evaluate._shape_id(grid.kappa_inv), dtype)
+    aux = mpc._pmpc_aux(x[:n], tg[:n], mpc.PMPCWeights(*(v[:n] for v in w)))
+    out.append(("pmpc", ctl.ocp, ctl.cfg,
+                dyn.PMPCParams(mu=grid.mu[:n], dt=DT), aux, x[:n],
+                torch.zeros((n, 15, 2), dtype=dtype)))
+    # RMPC, slew-exact
+    ctl = mpc.RMPC(N=20, dt=DT, cfg=ilqr.ILQRConfig(max_iters=iters,
+                                                     al_iters=rounds))
+    s4 = torch.zeros((SOLVE_B, 4), dtype=dtype)
+    s4[:, 0], s4[:, 2] = rand(SOLVE_B, scale=0.1), rand(SOLVE_B, scale=0.1)
+    s4[:, 1], s4[:, 3] = normal(SOLVE_B, scale=0.05), normal(SOLVE_B,
+                                                            scale=0.05)
+    carry = ctl.init_carry(s4[:n], dtype)
+    th = normal(SOLVE_B, 14, scale=0.3)[:n]
+    carry = carry._replace(rls_x=carry.rls_x._replace(theta=th[:, :7]),
+                           rls_y=carry.rls_y._replace(theta=th[:, 7:]))
+    t4 = torch.zeros((n, 4), dtype=dtype)
+    t4[:, 0], t4[:, 2] = 0.05, -0.04
+    params, aux, z0, _ = ctl._front(carry, s4[:n], t4,
+                                    mpc.RMPC_DEFAULT_WEIGHTS)
+    out.append(("rmpc", ctl.ocp, ctl.cfg, params, aux, z0,
+                torch.zeros((n, 20, 2), dtype=dtype)))
+    # LMPC
+    from dart_tpu_torch.adapt import lmpc_trainer
+
+    pv = lmpc_trainer.sample_true_params(gen, SOLVE_B).to(dtype)[:n]
+    z = torch.zeros((SOLVE_B, 8), dtype=dtype)
+    z[:, 0], z[:, 2] = rand(SOLVE_B, scale=0.1), rand(SOLVE_B, scale=0.1)
+    z[:, 1], z[:, 3] = normal(SOLVE_B, scale=0.05), normal(SOLVE_B,
+                                                          scale=0.05)
+    tg8 = torch.zeros((n, 8), dtype=dtype)
+    tg8[:, 0], tg8[:, 2] = 0.05, -0.04
+    ctl = mpc.LMPC(N=LMPC_N, dt=LMPC_DT, u_bound=0.4,
+                   cfg=ilqr.ILQRConfig(max_iters=iters))
+    aux, z0 = ctl._problem(ctl.init_carry(n, dtype, "cpu"), z[:n], tg8,
+                           mpc.LMPC_DEFAULT_WEIGHTS)
+    out.append(("lmpc", ctl.ocp, ctl.cfg, pv, aux, z0,
+                torch.zeros((n, LMPC_N, 2), dtype=dtype)))
+    return [(k, o, c, *(to_dev(x, dev) for x in (p, a, z0_, V0)))
+            for k, o, c, p, a, z0_, V0 in out]
+
+
+def to_dev(tree, dev: torch.device):
+    """A tensor or a NamedTuple of tensors and python scalars on `dev`."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    return type(tree)(*(to_dev(x, dev) if isinstance(x, (torch.Tensor,
+                                                          tuple)) else x
+                        for x in tree))
+
+
+@contextlib.contextmanager
+def plain_riccati_on_card():
+    """Count the calls of `riccati_backward_reference` on CUDA tensors (the
+    wrapper must launch the kernel there, never its plain version)."""
+    from dart_tpu_torch.ops.kernels import riccati as kric
+
+    fn = kric.riccati_backward_reference
+    box = [0]
+
+    def counted(*a, **k):
+        box[0] += a[0].device.type == "cuda"
+        return fn(*a, **k)
+
+    kric.riccati_backward_reference = counted
+    try:
+        yield box
+    finally:
+        kric.riccati_backward_reference = fn
+
+
+def timed_solve(kind, ocp, cfg, params, aux, z0, V0):
+    """One `ilqr.solve`, synchronised; returns (solution, host-clock ms,
+    riccati launches, host reads)."""
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.solver import ilqr
+
+    cuda = z0.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    riccati_backward.launches, ilqr.host_bool.count = 0, 0
+    t0 = time.perf_counter()
+    sol = ilqr.solve(ocp, cfg, params, aux, z0, V0)
+    if cuda:
+        torch.cuda.synchronize()
+    return (sol, (time.perf_counter() - t0) * 1e3, riccati_backward.launches,
+            ilqr.host_bool.count)
+
+
+def phase_solve(dev: torch.device, card: str) -> dict:
+    """The port's `ilqr.solve` on the card for the PMPC, slew-exact RMPC
+    (AL) and LMPC OCPs at B=18 and B=1, held to the same call on CPU
+    tensors (the Riccati kernel's plain version), float64 and float32;
+    every backward pass must be a kernel launch, none the plain version on
+    the card; argmin on the card must pick NaN and ties as on the CPU; a
+    NaN lane under the parallel line search. Returns per-solve numbers."""
+    from dart_tpu_torch.ops.kernels import riccati as kric
+    from dart_tpu_torch.solver import ilqr
+
+    # torch.argmin: the first NaN wins, the first of equal values on ties.
+    probe = torch.tensor([[1.0, 0.5, 0.5, 2.0], [1.0, float("nan"), 0.2,
+                                                 float("nan")],
+                          [0.3, 0.3, 0.3, 0.3]], dtype=torch.float64)
+    a_cpu = probe.argmin(dim=1).tolist()
+    a_card = probe.to(dev).argmin(dim=1).cpu().tolist()
+    print(f"[solve] argmin, CPU {a_cpu}, card {a_card} (want [1, 1, 0])")
+    if a_card != a_cpu or a_cpu != [1, 1, 0]:
+        raise AssertionError("argmin on the card disagrees on NaN or ties")
+    out, worst = {}, 0.0
+    cpu = torch.device("cpu")
+    with plain_riccati_on_card() as plain:
+        for dtype, n in ((torch.float64, SOLVE_B), (torch.float64, 1),
+                         (torch.float32, SOLVE_B), (torch.float32, 1)):
+            f32 = dtype == torch.float32
+            iters, rounds = (SOLVE_F32_ITERS, 1) if f32 else (10, 3)
+            for pc, pp in zip(solve_problems(dtype, dev, n, iters, rounds),
+                              solve_problems(dtype, cpu, n, iters, rounds)):
+                kind = pc[0]
+                sol, ms, ric, reads = timed_solve(*pc)
+                ref = timed_solve(*pp)[0]
+                dv = (sol.V.cpu() - ref.V).abs()
+                dl = dv.amax(dim=(1, 2))
+                it_c, it_p = sol.iters.cpu(), ref.iters
+                print(f"[solve] {kind} B={n} {str(dtype)[6:]}, {iters} "
+                      f"iterations x {rounds if kind == 'rmpc' else 1} "
+                      f"rounds: {ms:.2f} ms a solve (host "
+                      f"clock), {ric} Riccati launches, {reads} host reads, "
+                      f"iters max {int(it_c.max())} (CPU {int(it_p.max())}),"
+                      f" lanes with other iters {int((it_c != it_p).sum())}; "
+                      f"max |dV| {float(dv.max()):.3e} [{card}]")
+                if ric == 0:
+                    raise AssertionError(f"{kind}: no Riccati launch")
+                if not bool(torch.isfinite(sol.V).all()):
+                    raise AssertionError(f"{kind}: non-finite V")
+                if not f32:
+                    worst = max(worst, float(dv.max()))
+                    if not float(dv.max()) <= SOLVE_F64_TOL:
+                        raise AssertionError(f"{kind} B={n}: |dV| "
+                                             f"{float(dv.max())} > "
+                                             f"{SOLVE_F64_TOL}")
+                else:
+                    p99 = float(torch.quantile(dv.flatten(), 0.99))
+                    off = torch.nonzero(dl > 1e-3).flatten().tolist()
+                    print(f"[solve]   float32 p99 |dV| {p99:.3e} (gate "
+                          f"{SOLVE_F32_P99:.0e}); lanes past 1e-3: {off}")
+                    if not p99 <= SOLVE_F32_P99:
+                        raise AssertionError(f"{kind} B={n} float32 p99 "
+                                             f"{p99} > {SOLVE_F32_P99}")
+                out[(kind, n, str(dtype)[6:])] = {
+                    "ms": ms, "riccati": ric, "reads": reads,
+                    "iters": int(it_c.max())}
+        # float32 at the evaluator's full budget, and the CPU's own float32
+        # solve against its float64 one.
+        pc = solve_problems(torch.float32, dev, SOLVE_B)[0]
+        pp = solve_problems(torch.float32, cpu, SOLVE_B)[0]
+        sol, ms, ric, reads = timed_solve(*pc)
+        ref = timed_solve(*pp)[0]
+        ref64 = timed_solve(*solve_problems(torch.float64, cpu, SOLVE_B)[0])[0]
+        dv = (sol.V.cpu() - ref.V).abs()
+        d64 = (ref.V.double() - ref64.V).abs()
+        dc = ((sol.cost.cpu() - ref.cost).abs() / ref.cost.abs()).max()
+        off = torch.nonzero(dv.amax(dim=(1, 2)) > 1e-3).flatten().tolist()
+        q99 = lambda x: float(torch.quantile(x.flatten(), 0.99))  # noqa
+        print(f"[solve] pmpc B={SOLVE_B} float32, 10 iterations: {ms:.2f} ms "
+              f"a solve, {ric} Riccati launches, {reads} host reads; card "
+              f"vs CPU max |dV| {float(dv.max()):.3e}, p99 {q99(dv):.3e}, "
+              f"lanes past 1e-3 {off}, max relative cost difference "
+              f"{float(dc):.3e}; the CPU's float32 vs its float64: max "
+              f"{float(d64.max()):.3e}, p99 {q99(d64):.3e}; iters card "
+              f"{sol.iters.cpu().tolist()}, CPU {ref.iters.tolist()} "
+              f"[{card}]")
+        if not (torch.equal(sol.iters.cpu(), ref.iters)
+                and float(dc) <= SOLVE_F32_COST_RTOL):
+            raise AssertionError(
+                f"pmpc float32 at the full budget: relative cost difference"
+                f" {float(dc)} (gate {SOLVE_F32_COST_RTOL}) or iterations "
+                "differ from the CPU")
+        # A NaN lane under the parallel line search, float64.
+        pc = solve_problems(torch.float64, dev, SOLVE_B)[0]
+        pp = solve_problems(torch.float64, torch.device("cpu"), SOLVE_B)[0]
+        par = ilqr.ILQRConfig(max_iters=10, linesearch="parallel")
+        for p in (pc, pp):
+            p[5][SOLVE_NAN_LANE, 1] = float("nan")
+        got = timed_solve(pc[0], pc[1], par, *pc[3:])[0]
+        ref = timed_solve(pp[0], pp[1], par, *pp[3:])[0]
+        keep = torch.arange(SOLVE_B) != SOLVE_NAN_LANE
+        dv = float((got.V.cpu()[keep] - ref.V[keep]).abs().max())
+        print(f"[solve] pmpc B={SOLVE_B} parallel search, NaN at lane "
+              f"{SOLVE_NAN_LANE}: iters card {got.iters.cpu().tolist()}, CPU "
+              f"{ref.iters.tolist()}; other lanes max |dV| {dv:.3e}")
+        # No trial beats a NaN cost: the lane keeps its warm start and runs
+        # every iteration, its gnorm NaN.
+        nan = SOLVE_NAN_LANE
+        if not (torch.equal(got.V[nan].cpu(), ref.V[nan])
+                and bool(torch.isnan(got.grad_norm[nan]))
+                and torch.equal(got.iters.cpu(), ref.iters)
+                and dv <= SOLVE_F64_TOL):
+            raise AssertionError("the NaN lane under the parallel search "
+                                 "differs from the CPU")
+    print(f"[solve] plain Riccati calls on the card {plain[0]} (gate 0)")
+    if plain[0] != 0:
+        raise AssertionError("riccati_backward_reference ran on the card")
+    # The Riccati kernel per call at this path's shapes, float32.
+    for kind, ocp, cfg, params, aux, z0, V0 in solve_problems(
+            torch.float32, dev, SOLVE_B):
+        Z = ilqr._rollout(ocp, params, z0, V0)
+        n_con = max(ocp.n_con, 1)
+        lam = torch.zeros((SOLVE_B, V0.shape[1], n_con), dtype=z0.dtype,
+                          device=dev)
+        mu = torch.ones((SOLVE_B,), dtype=z0.dtype, device=dev)
+        derivs = ilqr._linearize(ocp, params, aux, Z, V0, lam, mu)
+        reg = torch.full((SOLVE_B,), 1e-6, dtype=z0.dtype, device=dev)
+        for n in (1, SOLVE_B):
+            args = [ilqr._batch_last(d[:n]) for d in derivs]
+            vb = ilqr._batch_last(V0[:n])
+            call = lambda: kric.riccati_backward(   # noqa: E731
+                *args, vb, ocp.u_lo, ocp.u_hi, reg[:n])
+            call()
+            torch.cuda.synchronize()
+            ms = median_ms(call, 50)
+            nz = z0.shape[1]
+            flops, nbytes = kric.work(V0.shape[1], nz, n, 4)
+            b_ms, b_by = bound(flops, nbytes)
+            print(f"[solve] riccati_backward {kind} N={V0.shape[1]} nz={nz} "
+                  f"B={n} float32: {ms:.4f} ms per call (CUDA events, "
+                  f"median); bound {b_ms:.6f} ms by {b_by} [{card}]")
+            out[("riccati", kind, n)] = ms
+    return {"worst_f64": worst, "per": out}
+
+
+def run_cli(argv: list[str]):
+    """One command through the dispatcher's `main`, stdout captured; returns
+    (rc, the JSON on its last line, riccati launches, host reads, wall s)."""
+    from dart_tpu_torch.cli.__main__ import main as dispatch
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.solver import ilqr
+
+    buf = io.StringIO()
+    riccati_backward.launches, ilqr.host_bool.count = 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = dispatch(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue().strip()
+    return (rc, json.loads(text if argv[0] == "sweep" else
+                           text.splitlines()[-1]),
+            riccati_backward.launches, ilqr.host_bool.count, wall)
+
+
+def phase_cli(kind: str, card: str) -> dict:
+    """`python -m dart_tpu_torch.cli {pmpc|rmpc} --runtime R` at the
+    command's default scenario (cube, 1 kg, mu 0.1, target (0.05, -0.04)),
+    float32: four episodes (a warm call, 3 timed), gated on the riccati
+    launches, no plain Riccati call on the card, and `converged`, the
+    steady-state error, the control effort and (rmpc, through `--save`)
+    the controls of JAX's own command on the CPU (JAX_CLI)."""
+    R = CLI_RUNTIME[kind]
+    n_steps = int(R / DT)
+    solves = -(-(n_steps - 250) // 5)
+    with plain_riccati_on_card() as plain, \
+            tempfile.TemporaryDirectory() as tmp:
+        rc, out, ric, reads, wall = run_cli(
+            [kind, "--runtime", str(R)]
+            + (["--save", tmp] if kind == "rmpc" else []))
+        if kind == "rmpc":
+            from dart_tpu_torch.io.logging import load_episodes_json
+
+            (ep,) = load_episodes_json(out["log_path"])
+            u_cmd = ep["u_cmd"][250:]
+    ref = JAX_CLI[kind]
+    per_ep = ric / 4
+    plant_ms = plant_step_ms_lane1()
+    ctrl_ms = (out["run_s"] * 1e3 - n_steps * plant_ms) / solves
+    print(f"[{kind}-cli] --runtime {R}: rc {rc}, converged {out['converged']}"
+          f" (JAX {ref['converged']}), convergence time "
+          f"{out['convergence_time']} s (JAX {ref['convergence_time']}), "
+          f"steady-state error {out['steady_state_error']} m (JAX "
+          f"{ref['steady_state_error']}), control effort "
+          f"{out['control_effort']} (JAX {ref['control_effort']}); first "
+          f"call {out['compile_s']} s, "
+          f"{out['run_s']} s an episode of {n_steps} steps, {wall:.1f} s "
+          f"wall for 4 episodes [{card}]")
+    print(f"[{kind}-cli] {ric} riccati launches and {reads} host reads in 4 "
+          f"episodes of {solves} control steps: {per_ep / solves:.1f} "
+          f"launches and {reads / 4 / solves:.1f} host reads a control "
+          f"step; the plant alone {plant_ms:.4f} ms a step at B=1, so "
+          f"{ctrl_ms:.1f} ms a control step beyond it [{card}]")
+    if rc != 0:
+        raise AssertionError(f"{kind} command returned {rc}")
+    if ric == 0 or plain[0] != 0:
+        raise AssertionError(f"{kind}: {ric} Riccati launches, {plain[0]} "
+                             "plain calls on the card")
+    if out["converged"] != ref["converged"]:
+        raise AssertionError(f"{kind}: converged {out['converged']}, JAX "
+                             f"{ref['converged']}")
+    d_sse = abs(out["steady_state_error"] - ref["steady_state_error"])
+    d_eff = abs(out["control_effort"] / ref["control_effort"] - 1)
+    print(f"[{kind}-cli] |steady-state error - JAX's| {d_sse:.3e} m (gate "
+          f"{CLI_SSE_ATOL:.0e}), relative control-effort difference "
+          f"{d_eff:.3e} (gate {CLI_EFFORT_RTOL:.0e})")
+    if not (d_sse <= CLI_SSE_ATOL and d_eff <= CLI_EFFORT_RTOL):
+        raise AssertionError(f"{kind}: the episode differs from JAX's")
+    if kind == "rmpc":
+        d_u = max(abs(a - b) for got, want in zip(u_cmd, ref["u_cmd"])
+                  for a, b in zip(got, want))
+        print(f"[rmpc-cli] controls from the first solve on {u_cmd} (JAX "
+              f"{ref['u_cmd']}), max difference {d_u:.3e} rad (gate "
+              f"{CLI_U_ATOL:.0e})")
+        if not (len(u_cmd) == len(ref["u_cmd"]) and d_u <= CLI_U_ATOL):
+            raise AssertionError("rmpc: the controls differ from JAX's")
+    return {"launches": ric, "reads": reads, "run_s": out["run_s"],
+            "n_steps": n_steps, "solves": solves, "wall": wall,
+            "ctrl_ms": ctrl_ms}
+
+
+def plant_step_ms_lane1(n: int = 200) -> float:
+    """Host-clock ms of one calibrated contact-plant step at B=1 (the
+    commands' cube row), synchronised over n steps."""
+    from dart_tpu_torch.physics import tray_object as to
+    from dart_tpu_torch.rollout import evaluate
+
+    dev = torch.device("cuda", 0)
+
+    def lane(x):
+        return torch.tensor([x], dtype=torch.float32, device=dev)
+
+    params = evaluate._tray_params(lane([0.0, 0.0]), lane(1.0), lane(0.1),
+                                   torch.float32)
+    s = to.init_state(device=dev, batch=1)
+    u = torch.full((1, 2), 0.05, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        for k in range(20 + n):
+            if k == 20:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            s = to.step(s, u, params, DT)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def phase_sweep_instance(card: str) -> dict:
+    """`python -m dart_tpu_torch.cli.sweep --runtime R` (defaults: the
+    per-scenario PMPC evaluator, the 18 rows as lanes), gated on JAX's own
+    per-scenario sweep's row count and each row's error and effort at that
+    runtime (JAX_SWEEP_INSTANCE)."""
+    R = SWEEP_INSTANCE_RUNTIME
+    with plain_riccati_on_card() as plain:
+        rc, out, ric, reads, wall = run_cli(["sweep", "--runtime", str(R)])
+    rows = out["scenarios"]
+    n_conv = sum(r["converged"] for r in rows)
+    ref = JAX_SWEEP_INSTANCE
+    print(f"[sweep-instance] --controller pmpc --runtime {R}: {n_conv}/"
+          f"{len(rows)} converged (gate >= JAX's {ref['n_converged']}), "
+          f"{ric} riccati launches, {reads} host reads, {wall:.3f} s wall "
+          f"[{card}]")
+    for r, sse, eff in zip(rows, ref["sse_mm"], ref["effort"]):
+        print(f"[sweep-instance]   {r['object']:8s} m={r['mass']:.0f} "
+              f"mu={r['mu']:.2f}: sse {r['sse_mm']:7.2f} mm (JAX {sse:.2f}),"
+              f" effort {r['effort']:.4f} (JAX {eff:.4f}), conv "
+              f"{r['conv_time_s']} s")
+    if rc != 0 or len(rows) != 18:
+        raise AssertionError(f"sweep: rc {rc}, {len(rows)} rows")
+    off = [i for i, (r, sse, eff) in enumerate(zip(rows, ref["sse_mm"],
+                                                   ref["effort"]))
+           if not (abs(r["sse_mm"] - sse) <= SWEEP_SSE_MM_ATOL + 1e-9
+                   and abs(r["effort"] - eff) <= SWEEP_EFFORT_ATOL + 1e-9)]
+    print(f"[sweep-instance] rows off JAX's by more than {SWEEP_SSE_MM_ATOL} "
+          f"mm or {SWEEP_EFFORT_ATOL} effort: {off} (gate none)")
+    if off:
+        raise AssertionError(f"sweep rows {off} differ from JAX's")
+    if ric == 0 or plain[0] != 0:
+        raise AssertionError(f"sweep: {ric} Riccati launches, {plain[0]} "
+                             "plain calls on the card")
+    if n_conv < ref["n_converged"]:
+        raise AssertionError(f"the per-scenario sweep converged {n_conv} "
+                             f"rows, JAX {ref['n_converged']}")
+    return {"launches": ric, "reads": reads, "wall": wall,
+            "n_converged": n_conv}
+
+
 PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
           "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "pmpc-eval",
-          "rmpc-eval", "sweep", "times")
+          "rmpc-eval", "sweep", "solve", "pmpc-cli", "rmpc-cli",
+          "sweep-instance", "times")
 # Run only when named: the device-time breakdown behind PERF.md section 5,
 # and the Riccati and PMPC kernels' device time against horizon, budget and
 # batch.
@@ -2055,6 +2569,12 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
         res["rmpc_eval"] = phase_rmpc_eval(dev, card)
     elif ph == "sweep":
         res["sweep"] = phase_sweep(dev, card)
+    elif ph == "solve":
+        res["solve"] = phase_solve(dev, card)
+    elif ph in ("pmpc-cli", "rmpc-cli"):
+        res[ph] = phase_cli(ph[:4], card)
+    elif ph == "sweep-instance":
+        res["sweep_instance"] = phase_sweep_instance(card)
     elif ph == "times":
         res["pmpc_times"] = phase_times(dev, card)
         res["times"] = phase_kernel_times(dev, card)

@@ -1,19 +1,18 @@
 """Dispatcher of the port's commands (port of `dart_tpu.cli.__main__`).
 
-    python -m dart_tpu_torch.cli sweep [args...]
+    python -m dart_tpu_torch.cli {pmpc|rmpc|sweep|demo} [args...]
 
-Only `sweep` is ported; the other commands of `python -m dart_tpu.cli`
-stop with the ROADMAP Queue 1 item that ports them.
+`demo` runs the three canned experiments of the reference launcher
+(`launch.sh:34-52`): cube precise, cylinder fast, sphere gentle. The other
+commands of `python -m dart_tpu.cli` stop with the ROADMAP Queue 1 item
+that ports them.
 """
 
 import sys
 
 _NOT_PORTED = {
-    "pmpc": "ROADMAP Queue 1 item 3 (single-lane solver and controllers)",
-    "rmpc": "ROADMAP Queue 1 item 3 (single-lane solver and controllers)",
     "lmpc": "ROADMAP Queue 1 item 4 (PPO and LMPC training)",
     "bench": "ROADMAP Queue 1 item 1 (the port's bench)",
-    "demo": "ROADMAP Queue 1 item 3 (it runs the pmpc command)",
     "preview": "ROADMAP Queue 1 item 6 (with the object presets)",
     "watch": "ROADMAP Queue 1 item 6 (with the telemetry ring)",
 }
@@ -25,9 +24,28 @@ def main(argv=None):
         print(__doc__)
         return 0
     cmd, rest = argv[0], argv[1:]
+    if cmd == "pmpc":
+        from dart_tpu_torch.cli.pmpc import main as m
+        return m(rest)
+    if cmd == "rmpc":
+        from dart_tpu_torch.cli.rmpc import main as m
+        return m(rest)
     if cmd == "sweep":
         from dart_tpu_torch.cli.sweep import main as m
         return m(rest)
+    if cmd == "demo":
+        from dart_tpu_torch.cli.pmpc import main as m
+        from dart_tpu_torch.io.config import PRESETS
+        for name in ("cube_precise", "cylinder_fast", "sphere_gentle"):
+            c = PRESETS[name]
+            print(f"== {name} ==")
+            rc = m(["--target", str(c.target[0]), str(c.target[1]),
+                    "--object_name", c.object_name, "--mass", str(c.mass),
+                    "--friction", str(c.friction), "--runtime", "5",
+                    "--tolerance", str(c.tolerance), *rest])
+            if rc:
+                return rc
+        return 0
     if cmd in _NOT_PORTED:
         print(f"{cmd}: not ported yet, see {_NOT_PORTED[cmd]}",
               file=sys.stderr)

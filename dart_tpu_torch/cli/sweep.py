@@ -1,22 +1,23 @@
-"""18-config evaluation sweep on one device, batch-major (port of
-`dart_tpu.cli.sweep`; the batched equivalent of running `PMPC/launch.sh`
-over every world_*.xml variant).
+"""18-config evaluation sweep on one device (port of `dart_tpu.cli.sweep`;
+the batched equivalent of running `PMPC/launch.sh` over every world_*.xml
+variant).
 
-    python -m dart_tpu_torch.cli.sweep --controller rmpc --batch_major \
-        --targets 0.05,-0.04 0.08,0.06 --runtime 5
+    python -m dart_tpu_torch.cli.sweep --targets 0.05,-0.04 0.08,0.06 \
+        --runtime 5
+    python -m dart_tpu_torch.cli.sweep --controller rmpc --batch_major
 
-Runs on the card; `--cpu` runs the same on the CPU, where each kernel's
-plain PyTorch version stands in for it.
+Without `--batch_major` every row is a lane of the per-scenario evaluator
+(`--controller pmpc|rmpc`); with it (`rmpc` only) the grid, padded to 128
+lanes, goes through one RMPCBatch solve per control step. Runs on the
+card; `--cpu` runs the same on the CPU, where each kernel's plain PyTorch
+version stands in for it.
 """
 
 import argparse
 import json
 
-# Controllers and modes not ported yet, and the ROADMAP Queue 1 item that
-# ports each.
+# Controllers not ported yet, and the ROADMAP Queue 1 item that ports each.
 _NOT_PORTED = {
-    "pmpc": "the per-instance PMPC evaluator (ROADMAP Queue 1 item 3)",
-    "rmpc": "the per-instance RMPC evaluator (ROADMAP Queue 1 item 3)",
     "lmpc": "the LMPC evaluator and its PPO policy (ROADMAP Queue 1 item 4)",
     "mppi": "the MPPI evaluator (ROADMAP Queue 1 item 6)",
 }
@@ -47,9 +48,9 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.batch_major and args.controller != "rmpc":
         p.error("--batch_major currently supports --controller rmpc")
-    if not args.batch_major:
-        p.error(f"--controller {args.controller} without --batch_major "
-                f"needs {_NOT_PORTED[args.controller]}, not ported yet")
+    if args.controller in _NOT_PORTED:
+        p.error(f"--controller {args.controller} needs "
+                f"{_NOT_PORTED[args.controller]}, not ported yet")
 
     import torch
 
@@ -57,7 +58,7 @@ def main(argv=None):
     from dart_tpu_torch.io.logging import to_jsonable
     from dart_tpu_torch.parallel import sweep as sweep_mod
     from dart_tpu_torch.physics import tray_object as to_mod
-    from dart_tpu_torch.rollout.evaluate import make_rmpc_batch_evaluator
+    from dart_tpu_torch.rollout import evaluate
     from dart_tpu_torch.utils.device import resolve
 
     try:
@@ -72,10 +73,15 @@ def main(argv=None):
     n_steps = int(args.runtime / dt)
     dtype = torch.float64 if args.f64 else torch.float32
     batch = scenes.sweep_grid(targets=targets, dtype=dtype, device=dev)
-    ev = make_rmpc_batch_evaluator(n_steps=n_steps, dt=dt, control_every=5,
-                                   warmup_steps=250, tol=args.tolerance,
-                                   tray_lag=tray_lag)
-    res, agg = sweep_mod.run_sweep_batched(ev, batch)
+    kw = dict(n_steps=n_steps, dt=dt, control_every=5, warmup_steps=250,
+              tol=args.tolerance, tray_lag=tray_lag)
+    if args.batch_major:
+        ev = evaluate.make_rmpc_batch_evaluator(**kw)
+        res, agg = sweep_mod.run_sweep_batched(ev, batch)
+    else:
+        maker = {"pmpc": evaluate.make_pmpc_evaluator,
+                 "rmpc": evaluate.make_rmpc_evaluator}[args.controller]
+        res, agg = sweep_mod.run_sweep(maker(**kw), batch)
 
     m = res.metrics
     cols = {k: v.cpu().tolist() for k, v in (

@@ -1,10 +1,13 @@
-"""Receding-horizon MPC front ends for a scenario batch (port of the PMPC,
-RMPC and LMPC parts of `dart_tpu.control.mpc`).
+"""Receding-horizon MPC front ends (port of `dart_tpu.control.mpc`).
 
 Each controller is stateless: it holds the static problem structure, and
 everything that evolves (warm start, previous tilt, RLS estimates,
-governor reference, stiction integral) lives in an explicit carry. JAX's
-`while_loop`/`cond` become host loops that read the device
+governor reference, stiction integral) lives in an explicit carry. Every
+carry, state and target has a leading lane axis. `PMPC`, `RMPC` and
+`LMPC` are the JAX package's single-lane controllers, run on lanes as
+`jax.vmap` runs them: each solve is `ilqr.solve`, linearised by autodiff.
+The `*Batch` controllers are the batch-major ones, with the whole-solve
+kernels. JAX's `while_loop`/`cond` become host loops that read the device
 (`ilqr.host_bool`).
 """
 
@@ -104,6 +107,43 @@ class PMPCCarry(NamedTuple):
     V: torch.Tensor               # (B, N, 2) warm-start control trajectory
 
 
+class PMPC:
+    """Analytic tray-tilt MPC (nx=6, nu=2), one `ilqr.solve` per call on
+    `make_pmpc_ocp`'s autodiff linearisation."""
+
+    def __init__(self, N: int = 15, dt: float = 0.002, u_bound: float = 0.6,
+                 cfg: ilqr.ILQRConfig = ilqr.ILQRConfig()):
+        self.N, self.dt = N, dt
+        self.ocp = make_pmpc_ocp(dt=dt, u_bound=u_bound)
+        self.cfg = cfg
+
+    def init_carry(self, B: int, dtype: torch.dtype,
+                   device: torch.device | str) -> PMPCCarry:
+        return PMPCCarry(V=torch.zeros((B, self.N, 2), dtype=dtype,
+                                       device=device))
+
+    def solve(self, carry: PMPCCarry, state: torch.Tensor,
+              target: torch.Tensor, params: dyn.PMPCParams,
+              weights: PMPCWeights):
+        """state (B, 6), target (B, 6); params/weights leaves shared or per
+        lane (B,). Returns (carry, u (B, 2), diag)."""
+        aux = _pmpc_aux(state, target, weights)
+        sol = ilqr.solve(self.ocp, self.cfg, params, aux, state, carry.V)
+        return PMPCCarry(V=_shift(sol.V)), sol.V[:, 0], _diag(sol)
+
+
+def _pmpc_aux(states: torch.Tensor, targets: torch.Tensor,
+              weights: PMPCWeights) -> PMPCAux:
+    B = states.shape[0]
+
+    def bc(x):
+        return torch.as_tensor(x, dtype=states.dtype,
+                               device=states.device).expand(B)
+
+    return PMPCAux(target=targets, Qp=bc(weights.Qp), Qv=bc(weights.Qv),
+                   R=bc(weights.R))
+
+
 class PMPCBatch:
     """Batch-major PMPC: one fused solve for a whole scenario batch.
 
@@ -148,8 +188,7 @@ class PMPCBatch:
         def bc(x):
             return torch.as_tensor(x, dtype=dtype, device=device).expand(B)
 
-        aux = PMPCAux(target=targets, Qp=bc(weights.Qp), Qv=bc(weights.Qv),
-                      R=bc(weights.R))
+        aux = _pmpc_aux(states, targets, weights)
         g_static = params.g if isinstance(params.g, (int, float)) else None
         zero = torch.zeros((B,), dtype=dtype, device=device)
         if (self.use_kernel and self.fast and B % LANES == 0
@@ -212,8 +251,7 @@ class RMPCCarry(NamedTuple):
 
 class RMPC:
     """Adaptive MPC: RLS update -> governor -> staged ref -> solve, one
-    call per control step (`rob_ctrl.py:331-361`). Holds the settings that
-    `RMPCBatch` shares; the single-lane `solve` is not ported."""
+    call per control step (`rob_ctrl.py:331-361`)."""
 
     def __init__(self, N: int = 20, dt: float = 0.002, u_bound: float = 0.4,
                  du_bound: float = 0.05, vmax: float = 0.25,
@@ -284,11 +322,60 @@ class RMPC:
             [err_int[..., 0], zero, err_int[..., 1], zero], -1)
         return err_int, target_aug
 
+    def _front(self, carry: RMPCCarry, states: torch.Tensor,
+               targets: torch.Tensor, weights: RMPCWeights):
+        """The step before the solve: the RLS update from the
+        finite-difference acceleration (features at the previous state;
+        gravity not subtracted, `rob_ctrl.py:341-343`), the anti-stiction
+        offset, the governor and the staged reference. states and targets
+        (B, 4). Returns (params, aux, z0, the carry's new RLS, governor and
+        stiction fields)."""
+        B = states.shape[0]
+        dtype, dev = states.dtype, states.device
+        ax = (states[:, 1] - carry.prev_state[:, 1]) / self.dt
+        ay = (states[:, 3] - carry.prev_state[:, 3]) / self.dt
+        phi = dyn.rmpc_features(carry.prev_state, self.v_eps)
+        rls_x = rls_update(carry.rls_x, phi, ax, self.rls_lam, self.rls_P_max)
+        rls_y = rls_update(carry.rls_y, phi, ay, self.rls_lam, self.rls_P_max)
+        theta = torch.cat([rls_x.theta, rls_y.theta], -1)
+        err_int, target_aug = self._stiction_update(carry.err_int, states,
+                                                    targets)
+        r_v = reference_governor(carry.r_v, target_aug, self.dr_max,
+                                 self.rg_alpha)
+        refs = build_ref_traj(r_v, target_aug, self.N, self.step_fraction)
+
+        def bc(x):
+            return torch.as_tensor(x, dtype=dtype, device=dev).expand(B)
+
+        params = dyn.RMPCParams(theta=theta, g=bc(dyn.GRAVITY_Z),
+                                v_eps=bc(self.v_eps))
+        w = RMPCWeights(*(bc(x) for x in weights))
+        aux = RMPCAux(ref=refs, Qp=w.Qp, Qv=w.Qv, Ru=w.Ru, Rdu=w.Rdu)
+        z0 = torch.cat([states, carry.u_prev], -1)
+        return params, aux, z0, dict(r_v=r_v, rls_x=rls_x, rls_y=rls_y,
+                                     prev_state=states, err_int=err_int)
+
+    def _advance(self, carry: RMPCCarry, sol: ilqr.ILQRSolution,
+                 fields: dict):
+        """The applied tilt (slew-exact: u_prev + V[:, 0], clipped) and the
+        next carry. Returns (carry', u (B, 2), diag)."""
+        if self.slew_exact:
+            u = torch.clamp(carry.u_prev + sol.V[:, 0], -self.u_bound,
+                            self.u_bound)
+        else:
+            u = sol.V[:, 0]
+        return (RMPCCarry(V=_shift(sol.V), u_prev=u, **fields), u,
+                _diag(sol))
+
     def solve(self, carry: RMPCCarry, state: torch.Tensor,
-              target: torch.Tensor, weights: RMPCWeights = RMPC_DEFAULT_WEIGHTS):
-        raise NotImplementedError(
-            "the single-lane RMPC.solve needs ilqr.solve, not ported yet "
-            "(ROADMAP Queue 1 item 7); use RMPCBatch.solve_batched")
+              target: torch.Tensor,
+              weights: RMPCWeights = RMPC_DEFAULT_WEIGHTS):
+        """One control step: state and target (B, 4), one `ilqr.solve`
+        with u_prev in the augmented initial state. Returns (carry',
+        u (B, 2), diag)."""
+        params, aux, z0, fields = self._front(carry, state, target, weights)
+        sol = ilqr.solve(self.ocp, self.cfg, params, aux, z0, carry.V)
+        return self._advance(carry, sol, fields)
 
 
 class RMPCBatch(RMPC):
@@ -311,10 +398,6 @@ class RMPCBatch(RMPC):
         self.kernel_tol_grad = kernel_tol_grad
         self.kernel_max_extra_rounds = kernel_max_extra_rounds
         self.kernel_xla_fallback = kernel_xla_fallback
-
-    def init_carry_batch(self, states0: torch.Tensor,
-                         dtype: torch.dtype = torch.float32) -> RMPCCarry:
-        return self.init_carry(states0, dtype)
 
     def _rescue(self, bad, params, aux, z0, V, cost, viol, gnorm):
         """Re-solve the flagged lanes with `ilqr.solve_batch` and merge.
@@ -347,29 +430,11 @@ class RMPCBatch(RMPC):
                       use_kernel: bool = True):
         """states (B, 4), targets (B, 4). Returns (carry', u (B, 2), diag)."""
         B = states.shape[0]
-        dtype, dev = states.dtype, states.device
-        ax = (states[:, 1] - carry.prev_state[:, 1]) / self.dt
-        ay = (states[:, 3] - carry.prev_state[:, 3]) / self.dt
-        phi = dyn.rmpc_features(carry.prev_state, self.v_eps)
-        rls_x = rls_update(carry.rls_x, phi, ax, self.rls_lam, self.rls_P_max)
-        rls_y = rls_update(carry.rls_y, phi, ay, self.rls_lam, self.rls_P_max)
-        theta = torch.cat([rls_x.theta, rls_y.theta], -1)
-        err_int, target_aug = self._stiction_update(carry.err_int, states,
-                                                    targets)
-        r_v = reference_governor(carry.r_v, target_aug, self.dr_max,
-                                 self.rg_alpha)
-        refs = build_ref_traj(r_v, target_aug, self.N, self.step_fraction)
-
-        def bc(x):
-            return torch.as_tensor(x, dtype=dtype, device=dev).expand(B)
-
-        params = dyn.RMPCParams(theta=theta, g=bc(dyn.GRAVITY_Z),
-                                v_eps=bc(self.v_eps))
-        w = RMPCWeights(*(bc(x) for x in weights))
-        aux = RMPCAux(ref=refs, Qp=w.Qp, Qv=w.Qv, Ru=w.Ru, Rdu=w.Rdu)
-        z0 = torch.cat([states, carry.u_prev], -1)
+        dev = states.device
+        params, aux, z0, fields = self._front(carry, states, targets, weights)
+        theta, refs = params.theta, aux.ref
         if use_kernel and self.slew_exact and B % LANES == 0:
-            wk = torch.stack(list(w))
+            wk = torch.stack([aux.Qp, aux.Qv, aux.Ru, aux.Rdu])
             th_bl, ref_bl = theta.T.contiguous(), \
                 torch.movedim(refs, 0, -1).contiguous()
             z0_bl = z0.T.contiguous()
@@ -408,15 +473,7 @@ class RMPCBatch(RMPC):
         else:
             sol = ilqr.solve_batch(self.ocp, self.cfg, params, aux, z0,
                                    carry.V)
-        if self.slew_exact:
-            u = torch.clamp(carry.u_prev + sol.V[:, 0], -self.u_bound,
-                            self.u_bound)
-        else:
-            u = sol.V[:, 0]
-        new_carry = RMPCCarry(V=_shift(sol.V), u_prev=u, r_v=r_v,
-                              rls_x=rls_x, rls_y=rls_y, prev_state=states,
-                              err_int=err_int)
-        return new_carry, u, _diag(sol)
+        return self._advance(carry, sol, fields)
 
 
 # --------------------------------------------------------------------------
@@ -445,9 +502,8 @@ class LMPCCarry(NamedTuple):
 
 
 class LMPC:
-    """MPC over the 34-parameter learned model (nx=8, nu=2). Holds the
-    settings that `LMPCBatch` shares; the single-lane `solve` is not
-    ported."""
+    """MPC over the 34-parameter learned model (nx=8, nu=2), one
+    `ilqr.solve` per call."""
 
     def __init__(self, N: int = 20, dt: float = 0.002, u_bound: float = 0.4,
                  cfg: ilqr.ILQRConfig = ilqr.ILQRConfig(),
@@ -456,27 +512,53 @@ class LMPC:
         self.ocp = make_lmpc_ocp(dt=dt, u_bound=u_bound, fast=fast)
         self.cfg = cfg
 
-    def init_carry(self, dtype: torch.dtype,
+    def init_carry(self, B: int, dtype: torch.dtype,
                    device: torch.device | str) -> LMPCCarry:
+        z = torch.zeros((B, self.N, 2), dtype=dtype, device=device)
         return LMPCCarry(
-            V=torch.zeros((self.N, 2), dtype=dtype, device=device),
-            U_plan=torch.zeros((self.N, 2), dtype=dtype, device=device),
-            plan_idx=torch.zeros((), dtype=torch.int32, device=device),
-            u_prev=torch.zeros(2, dtype=dtype, device=device))
+            V=z, U_plan=z.clone(),
+            plan_idx=torch.zeros((B,), dtype=torch.int32, device=device),
+            u_prev=torch.zeros((B, 2), dtype=dtype, device=device))
+
+    def _problem(self, carry: LMPCCarry, states: torch.Tensor,
+                 targets: torch.Tensor, weights: LMPCWeights):
+        """(aux, z0) of states and targets (B, 8), weights per lane."""
+        B = states.shape[0]
+
+        def bc(x, n):
+            return torch.as_tensor(x, dtype=states.dtype,
+                                   device=states.device).expand(B, n)
+
+        aux = LMPCAux(target=targets, Q=bc(weights.Q, 8),
+                      R=bc(weights.R, 4), Qt=bc(weights.Qt, 8))
+        return aux, torch.cat([states, carry.u_prev], -1)
+
+    @staticmethod
+    def _advance(sol: ilqr.ILQRSolution):
+        """Apply V[:, 0] and cache the whole plan for `shift_plan`."""
+        u = sol.V[:, 0]
+        plan_idx = torch.ones(u.shape[:1], dtype=torch.int32,
+                              device=u.device)
+        return (LMPCCarry(V=_shift(sol.V), U_plan=sol.V, plan_idx=plan_idx,
+                          u_prev=u), u, _diag(sol))
 
     def solve(self, carry: LMPCCarry, state: torch.Tensor,
               target: torch.Tensor, pvec: torch.Tensor,
               weights: LMPCWeights = LMPC_DEFAULT_WEIGHTS):
-        raise NotImplementedError(
-            "the single-lane LMPC.solve needs ilqr.solve, not ported yet "
-            "(ROADMAP Queue 1 item 7); use LMPCBatch.solve_batched")
+        """state and target (B, 8), pvec (B, 34) raw parameters (or one
+        (34,) vector shared by every lane). Returns (carry', u (B, 2),
+        diag)."""
+        aux, z0 = self._problem(carry, state, target, weights)
+        return self._advance(ilqr.solve(self.ocp, self.cfg, pvec, aux, z0,
+                                        carry.V))
 
     def shift_plan(self, carry: LMPCCarry):
         """Reuse the stale plan when the solver "missed its deadline":
         advance one step into the cached plan, holding the last entry
-        (`rlmpc2.py:1013-1018`)."""
+        (`rlmpc2.py:1013-1018`). Any leading lane shape, none included."""
         idx = torch.clamp_max(carry.plan_idx, self.N - 1)
-        u = torch.index_select(carry.U_plan, 0, idx.reshape(1).long())[0]
+        u = torch.take_along_dim(carry.U_plan, idx.long()[..., None, None],
+                                 dim=-2)[..., 0, :]
         return carry._replace(plan_idx=idx + 1, u_prev=u), u
 
 
@@ -501,11 +583,6 @@ class LMPCBatch(LMPC):
         self.kernel_tol_grad = kernel_tol_grad
         self.kernel_max_extra_rounds = kernel_max_extra_rounds
 
-    def init_carry_batch(self, batch: int, dtype: torch.dtype,
-                         device: torch.device | str) -> LMPCCarry:
-        one = self.init_carry(dtype, device)
-        return LMPCCarry(*(x.expand(batch, *x.shape).clone() for x in one))
-
     def solve_batched(self, carry: LMPCCarry, states: torch.Tensor,
                       targets: torch.Tensor, pvecs: torch.Tensor,
                       weights: LMPCWeights = LMPC_DEFAULT_WEIGHTS,
@@ -514,17 +591,11 @@ class LMPCBatch(LMPC):
         Returns (carry', u (B, 2), diag)."""
         B = states.shape[0]
         dtype, dev = states.dtype, states.device
-
-        def bc(x, n):
-            return torch.as_tensor(x, dtype=dtype, device=dev).expand(B, n)
-
-        w = LMPCWeights(Q=bc(weights.Q, 8), R=bc(weights.R, 4),
-                        Qt=bc(weights.Qt, 8))
-        aux = LMPCAux(target=targets, Q=w.Q, R=w.R, Qt=w.Qt)
-        z0 = torch.cat([states, carry.u_prev], -1)
+        aux, z0 = self._problem(carry, states, targets, weights)
         if use_kernel and B % LANES == 0:
             pv, Q, R, Qt, tg, zl = (x.T.contiguous() for x in
-                                    (pvecs, w.Q, w.R, w.Qt, targets, z0))
+                                    (pvecs, aux.Q, aux.R, aux.Qt, targets,
+                                     z0))
 
             def one_round(V):
                 Vn, cost, gn = lmpc_solve(
@@ -548,16 +619,4 @@ class LMPCBatch(LMPC):
         else:
             sol = ilqr.solve_batch(self.ocp, self.cfg, pvecs, aux, z0,
                                    carry.V)
-        u = sol.V[:, 0]
-        new_carry = LMPCCarry(
-            V=_shift(sol.V), U_plan=sol.V,
-            plan_idx=torch.ones((B,), dtype=torch.int32, device=dev),
-            u_prev=u)
-        return new_carry, u, _diag(sol)
-
-    def shift_plan_batched(self, carry: LMPCCarry):
-        """Per-lane stale-plan shift (`rlmpc2.py:1013-1018`, batched)."""
-        idx = torch.clamp_max(carry.plan_idx, self.N - 1)          # (B,)
-        u = torch.take_along_dim(carry.U_plan,
-                                 idx.long()[:, None, None], dim=1)[:, 0]
-        return carry._replace(plan_idx=idx + 1, u_prev=u), u
+        return self._advance(sol)

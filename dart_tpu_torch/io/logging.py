@@ -1,6 +1,13 @@
-"""JSON output helpers (the part of `dart_tpu.io.logging` the CLI needs)."""
+"""JSON output helpers and the RMPC episode log (the parts of
+`dart_tpu.io.logging` the commands use): `to_jsonable` and the RMPC JSON
+episode format with NaN -> null and its descriptive file names
+(`RMPC/dev_dual/rob_ctrl.py:52-86, 222-226`)."""
 
 from __future__ import annotations
+
+import json
+import os
+from typing import List
 
 import numpy as np
 
@@ -21,3 +28,23 @@ def to_jsonable(x):
     if isinstance(x, (np.integer, int)):
         return int(x)
     return x
+
+
+def episode_json_name(object_name: str, mass: float, mu: tuple,
+                      target_xy) -> str:
+    """`{object}_m{mass}_mu{t}-{tors}-{roll}_tx{..}_ty{..}.json`
+    (`rob_ctrl.py:222-226`)."""
+    t, tors, roll = mu
+    return (f"{object_name}_m{mass}_mu{t}-{tors}-{roll}"
+            f"_tx{float(target_xy[0])}_ty{float(target_xy[1])}.json")
+
+
+def save_episodes_json(path: str, episodes: List[dict]):
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(to_jsonable(episodes), f)
+
+
+def load_episodes_json(path: str) -> List[dict]:
+    with open(path) as f:
+        return json.load(f)

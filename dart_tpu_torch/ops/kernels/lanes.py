@@ -16,36 +16,38 @@ _BIG = 1e30
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(n,k,L) @ (k,m,L) -> (n,m,L): row i is sum_t a[i,t] * b[t]."""
-    n, k = a.shape[0], a.shape[1]
+    """(n,k,L) @ (k,m,L) -> (n,m,L): entry (i, j) is sum_t a[i,t] * b[t,j],
+    each product rounded and added in the order t = 0..k-1 (one
+    elementwise product and sum over all (i, j) per t)."""
+    k = a.shape[1]
     if b.shape[0] != k:
         raise ValueError(f"_mm: inner sizes {k} and {b.shape[0]} differ")
-    rows = []
-    for i in range(n):
-        acc = a[i, 0] * b[0]
-        for t in range(1, k):
-            acc = acc + a[i, t] * b[t]
-        rows.append(acc)
-    return torch.stack(rows)
+    acc = a[:, 0, None] * b[None, 0]
+    for t in range(1, k):
+        acc = acc + a[:, t, None] * b[None, t]
+    return acc
 
 
 def _mT(a: torch.Tensor) -> torch.Tensor:
     return torch.swapaxes(a, 0, 1)
 
 
-def _add_diag(M: torch.Tensor, val) -> torch.Tensor:
-    """(n,n,L) + val on the diagonal; val is a scalar or an (L,) lane."""
+def _eye_mask(M: torch.Tensor) -> torch.Tensor:
+    """(n, n, 1) boolean diagonal for an (n, n, L) lane matrix."""
     n = M.shape[0]
-    return torch.stack([torch.stack([M[i, j] + val if i == j else M[i, j]
-                                     for j in range(n)]) for i in range(n)])
+    return torch.eye(n, dtype=torch.bool, device=M.device)[..., None]
+
+
+def _add_diag(M: torch.Tensor, val) -> torch.Tensor:
+    """(n,n,L) + val on the diagonal; val is a scalar or an (L,) lane. The
+    off-diagonal entries are M's own (a select, not an added zero)."""
+    return torch.where(_eye_mask(M), M + val, M)
 
 
 def _scale_add_eye(M: torch.Tensor, s) -> torch.Tensor:
     """I + s*M for (n,n,L)."""
-    n = M.shape[0]
-    return torch.stack([torch.stack([s * M[i, j] + 1.0 if i == j
-                                     else s * M[i, j] for j in range(n)])
-                        for i in range(n)])
+    sM = s * M
+    return torch.where(_eye_mask(M), sM + 1.0, sM)
 
 
 def _rk4_jac_lanes(f, jac, x, v, dt: float):
@@ -76,7 +78,9 @@ def _rk4_jac_lanes(f, jac, x, v, dt: float):
 def _gains_lanes(Quu: torch.Tensor, free: torch.Tensor, Qux_cols):
     """Feedback gains on the free set: solve H K = -(Qux * free) column by
     column, H = free*Quu*free + diag(1 - free). Quu (2,2,L), free (2,L),
-    Qux_cols an iterable of (2,L) columns. Returns a list of (k0, k1)."""
+    Qux_cols an iterable of (b0, b1) pairs: one column's two rows (L,), or
+    a block of columns, each row (..., L). Returns a list of (k0, k1) of
+    the same shapes."""
     f0, f1 = free[0], free[1]
     h00 = Quu[0, 0] * f0 * f0 + (1.0 - f0)
     h01 = Quu[0, 1] * f0 * f1
@@ -95,29 +99,21 @@ def _gains_lanes(Quu: torch.Tensor, free: torch.Tensor, Qux_cols):
 
 def _mv(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """(n,k,L) @ (k,L) -> (n,L), summed in the order t = 0..k-1."""
-    n, k = a.shape[0], a.shape[1]
-    out = []
-    for i in range(n):
-        acc = a[i, 0] * v[0]
-        for t in range(1, k):
-            acc = acc + a[i, t] * v[t]
-        out.append(acc)
-    return torch.stack(out)
+    acc = a[:, 0] * v[0]
+    for t in range(1, a.shape[1]):
+        acc = acc + a[:, t] * v[t]
+    return acc
 
 
 def _add_diag_vec(M: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(n,n,L) + diag(w) with w (n,L)."""
-    n = M.shape[0]
-    return torch.stack([torch.stack([M[i, j] + w[i] if i == j else M[i, j]
-                                     for j in range(n)]) for i in range(n)])
+    return torch.where(_eye_mask(M), M + w[:, None], M)
 
 
 def _diag_embed(w: torch.Tensor) -> torch.Tensor:
     """(n, L) -> (n, n, L) diagonal embedding."""
-    n = w.shape[0]
-    z = torch.zeros_like(w[0])
-    return torch.stack([torch.stack([w[i] if i == j else z for j in range(n)])
-                        for i in range(n)])
+    return torch.where(_eye_mask(w[:, None]), w[None],
+                       torch.zeros_like(w[None]))
 
 
 def _boxqp2_lanes(Quu: torch.Tensor, Qu: torch.Tensor, lo: torch.Tensor,
@@ -127,61 +123,55 @@ def _boxqp2_lanes(Quu: torch.Tensor, Qu: torch.Tensor, lo: torch.Tensor,
     Enumerates the 9 active sets in (s0, s1) order (0 free, 1 at lo, 2 at
     hi), keeps the KKT-feasible ones (tolerance 1e-9) and takes the lowest
     objective with a strict `<`, so the first of equal candidates wins.
-    Each candidate's d is clipped after its objective is computed.
+    Each candidate's d is clipped after its objective is computed. The
+    candidates are rows of one (9, L) stack, each computed with its own
+    operations in the kernel's order.
     Quu: (2,2,L), Qu/lo/hi: (2,L). Returns d (2,L), free (2,L).
     """
     q00, q01, q11 = Quu[0, 0], Quu[0, 1], Quu[1, 1]
     det = q00 * q11 - q01 * q01
     det = torch.where(torch.abs(det) < 1e-30, torch.full_like(det, 1e-30),
                       det)
-    one, zero = torch.ones_like(q00), torch.zeros_like(q00)
+    # Both dims free.
+    ff0 = -(q11 * Qu[0] - q01 * Qu[1]) / det
+    ff1 = -(-q01 * Qu[0] + q00 * Qu[1]) / det
+    # One dim free, the other at (lo, hi).
+    c1 = torch.stack([lo[1], hi[1]])
+    fx0 = -(Qu[0] + q01 * c1) / torch.clamp_min(q00, 1e-30)
+    c0 = torch.stack([lo[0], hi[0]])
+    xf1 = -(Qu[1] + q01 * c0) / torch.clamp_min(q11, 1e-30)
+    # Rows in (s0, s1) order: (0,0) (0,1) (0,2) (1,0) ... (2,2).
+    d0 = torch.stack([ff0, fx0[0], fx0[1], lo[0], lo[0], lo[0],
+                      hi[0], hi[0], hi[0]])
+    d1 = torch.stack([ff1, lo[1], hi[1], xf1[0], lo[1], hi[1],
+                      xf1[1], lo[1], hi[1]])
+    g0 = q00 * d0 + q01 * d1 + Qu[0]
+    g1 = q01 * d0 + q11 * d1 + Qu[1]
+    dev = Qu.device
+    s0 = torch.tensor([0, 0, 0, 1, 1, 1, 2, 2, 2], device=dev)[:, None]
+    s1 = torch.tensor([0, 1, 2, 0, 1, 2, 0, 1, 2], device=dev)[:, None]
 
-    cand_d, cand_obj, cand_free = [], [], []
-    for s0 in range(3):
-        for s1 in range(3):
-            f0 = one if s0 == 0 else zero
-            f1 = one if s1 == 0 else zero
-            c0 = lo[0] if s0 == 1 else (hi[0] if s0 == 2 else 0.0 * q00)
-            c1 = lo[1] if s1 == 1 else (hi[1] if s1 == 2 else 0.0 * q00)
-            if s0 == 0 and s1 == 0:
-                d0 = -(q11 * Qu[0] - q01 * Qu[1]) / det
-                d1 = -(-q01 * Qu[0] + q00 * Qu[1]) / det
-            elif s0 == 0:
-                d1 = c1
-                d0 = -(Qu[0] + q01 * d1) / torch.clamp_min(q00, 1e-30)
-            elif s1 == 0:
-                d0 = c0
-                d1 = -(Qu[1] + q01 * d0) / torch.clamp_min(q11, 1e-30)
-            else:
-                d0, d1 = c0, c1
-            g0 = q00 * d0 + q01 * d1 + Qu[0]
-            g1 = q01 * d0 + q11 * d1 + Qu[1]
-            ok = torch.ones_like(q00, dtype=torch.bool)
-            for s, d, g, lo_i, hi_i in ((s0, d0, g0, lo[0], hi[0]),
-                                        (s1, d1, g1, lo[1], hi[1])):
-                if s == 0:
-                    ok = ok & (d >= lo_i - 1e-9) & (d <= hi_i + 1e-9)
-                elif s == 1:
-                    ok = ok & (g >= -1e-9)
-                else:
-                    ok = ok & (g <= 1e-9)
-            obj = 0.5 * (d0 * g0 + d1 * g1) + 0.5 * (Qu[0] * d0 + Qu[1] * d1)
-            cand_d.append((torch.clamp(d0, lo[0], hi[0]),
-                           torch.clamp(d1, lo[1], hi[1])))
-            cand_obj.append(torch.where(ok, obj, torch.full_like(obj, _BIG)))
-            cand_free.append((f0, f1))
+    def kkt(s, d, g, lo_i, hi_i):
+        return torch.where(s == 0, (d >= lo_i - 1e-9) & (d <= hi_i + 1e-9),
+                           torch.where(s == 1, g >= -1e-9, g <= 1e-9))
 
-    best_obj = cand_obj[0]
-    best_d0, best_d1 = cand_d[0]
-    best_f0, best_f1 = cand_free[0]
+    ok = kkt(s0, d0, g0, lo[0], hi[0]) & kkt(s1, d1, g1, lo[1], hi[1])
+    obj = 0.5 * (d0 * g0 + d1 * g1) + 0.5 * (Qu[0] * d0 + Qu[1] * d1)
+    obj = torch.where(ok, obj, torch.full_like(obj, _BIG))
+
+    best_obj = obj[0]
+    best = torch.zeros_like(q00, dtype=torch.long)
     for i in range(1, 9):
-        better = cand_obj[i] < best_obj
-        best_obj = torch.where(better, cand_obj[i], best_obj)
-        best_d0 = torch.where(better, cand_d[i][0], best_d0)
-        best_d1 = torch.where(better, cand_d[i][1], best_d1)
-        best_f0 = torch.where(better, cand_free[i][0], best_f0)
-        best_f1 = torch.where(better, cand_free[i][1], best_f1)
-    return torch.stack([best_d0, best_d1]), torch.stack([best_f0, best_f1])
+        better = obj[i] < best_obj
+        best_obj = torch.where(better, obj[i], best_obj)
+        best = torch.where(better, i, best)
+    pick = best[None]
+    d = torch.cat([torch.clamp(d0, lo[0], hi[0]).gather(0, pick),
+                   torch.clamp(d1, lo[1], hi[1]).gather(0, pick)])
+    one, zero = torch.ones_like(q00), torch.zeros_like(q00)
+    free = torch.stack([torch.where(best < 3, one, zero),
+                        torch.where(best % 3 == 0, one, zero)])
+    return d, free
 
 
 # Structural operation counts for the kernels' `work()`: boolean masks of

@@ -123,14 +123,11 @@ def _solve_lanes(praw, Q, Rfull, Qt, target, z0, V, *, N, n_iters,
 
             d, free = _boxqp2_lanes(Quu, Qu, u_lo - v_k, u_hi - v_k)
             gns.append(torch.maximum(torch.abs(d[0]), torch.abs(d[1])))
-            cols = _gains_lanes(
-                Quu, free,
-                [(Qux1[0, j], Qux1[1, j]) for j in range(8)]
-                + [(Qux2[0, j], Qux2[1, j]) for j in range(2)])
-            K1 = torch.stack([torch.stack([c[0] for c in cols[:8]]),
-                              torch.stack([c[1] for c in cols[:8]])])
-            K2 = torch.stack([torch.stack([c[0] for c in cols[8:]]),
-                              torch.stack([c[1] for c in cols[8:]])])
+            # Every column of Qux1 and Qux2 at once (the same operations
+            # per column).
+            (k1, k2) = _gains_lanes(Quu, free, [(Qux1[0], Qux1[1]),
+                                                (Qux2[0], Qux2[1])])
+            K1, K2 = torch.stack(k1), torch.stack(k2)
 
             w2 = _mv(Quu, d) + Qu
             vx8 = Qx8 + _mv(_mT(K1), w2) + _mv(_mT(Qux1), d)

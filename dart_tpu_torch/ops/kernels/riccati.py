@@ -48,10 +48,9 @@ def _backward_lanes(A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, lo, hi, reg):
         Quu = _add_diag(0.5 * (Quu + _mT(Quu)), 1e-9)
 
         d, free = _boxqp2_lanes(Quu, Qu, lo - V[k], hi - V[k])
-        cols = _gains_lanes(Quu, free, [(Qux[0, j], Qux[1, j])
-                                        for j in range(nz)])
-        K = torch.stack([torch.stack([c[0] for c in cols]),
-                         torch.stack([c[1] for c in cols])])  # (2, nz, L)
+        # Every column of Qux at once (the same operations per column).
+        (gains,) = _gains_lanes(Quu, free, [(Qux[0], Qux[1])])
+        K = torch.stack(gains)                                # (2, nz, L)
 
         Quu_d = _mv(Quu, d)
         Vx = Qx + _mv(_mT(K), Quu_d) + _mv(_mT(K), Qu) + _mv(_mT(Qux), d)

@@ -160,14 +160,11 @@ def _solve_lanes(th, ref, wv, z0, V, *, N, n_iters, n_alphas, al_rounds, dt,
 
             d, free = _boxqp2_lanes(Qvv, Qvl, -du_b - v_k, du_b - v_k)
             gns.append(torch.maximum(torch.abs(d[0]), torch.abs(d[1])))
-            cols = _gains_lanes(
-                Qvv, free,
-                [(Qvz1[0, j], Qvz1[1, j]) for j in range(4)]
-                + [(Qvz2[0, j], Qvz2[1, j]) for j in range(2)])
-            K1 = torch.stack([torch.stack([c[0] for c in cols[:4]]),
-                              torch.stack([c[1] for c in cols[:4]])])
-            K2 = torch.stack([torch.stack([c[0] for c in cols[4:]]),
-                              torch.stack([c[1] for c in cols[4:]])])
+            # Every column of Qvz1 and Qvz2 at once (the same operations
+            # per column).
+            (k1, k2) = _gains_lanes(Qvv, free, [(Qvz1[0], Qvz1[1]),
+                                                (Qvz2[0], Qvz2[1])])
+            K1, K2 = torch.stack(k1), torch.stack(k2)
 
             w2 = _mv(Qvv, d) + Qvl
             vx4 = Qx4 + _mv(_mT(K1), w2) + _mv(_mT(Qvz1), d)

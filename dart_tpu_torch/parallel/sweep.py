@@ -1,10 +1,10 @@
-"""Scenario sweeps on one device (port of the batch-major part of
-`dart_tpu.parallel.sweep`).
+"""Scenario sweeps on one device (port of `dart_tpu.parallel.sweep`'s
+`run_sweep` and `run_sweep_batched` on a one-device mesh).
 
-The batch is padded to a lane multiple so the whole-solve kernels engage,
-runs through one batched evaluator call, and the aggregate is taken under
-the `valid` mask as JAX's `shard_map` body takes it, with a sum where JAX
-has a `psum` over the mesh.
+The batch runs through one evaluator call with the rows as lanes, padded
+to a lane multiple where the whole-solve kernels want their grid, and the
+aggregate is taken under the `valid` mask as JAX's `shard_map` body takes
+it, with a sum where JAX has a `psum` over the mesh.
 """
 
 from __future__ import annotations
@@ -58,3 +58,11 @@ def run_sweep_batched(evaluate_batch: Callable, batch: ScenarioBatch,
         / torch.clamp(n_conv, min=1.0),
     )
     return _rows(res, n_real), agg
+
+
+def run_sweep(evaluate: Callable, batch: ScenarioBatch):
+    """Per-scenario sweep: every row a lane of one call of a per-scenario
+    evaluator (e.g. `make_pmpc_evaluator`), as JAX vmaps its episodes on
+    each device; no padding (JAX pads to the device count, one here).
+    Returns (per-scenario result, SweepAggregate)."""
+    return run_sweep_batched(evaluate, batch, lane_multiple=1)

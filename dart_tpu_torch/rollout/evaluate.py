@@ -1,15 +1,21 @@
-"""Batch-major scenario evaluation: closed-loop PMPC / RMPC against the
-tray-object contact plant (port of the batch evaluators of
-`dart_tpu.rollout.evaluate`).
+"""Scenario evaluation: closed-loop PMPC / RMPC against the tray-object
+contact plant (port of `dart_tpu.rollout.evaluate`'s PMPC and RMPC
+evaluators).
 
 A scenario batch advances in one host loop: the plant at the 2 ms sim
-cadence, one batched solve every `control_every` steps after
-`warmup_steps` of rest, and the reference's metrics (steady-state error,
-convergence time, control effort; `logger.py:154-176`) per lane at the
-end. JAX's `lax.cond` on the step index is a host `if` here, so the loop
-reads nothing from the device beyond what the controllers' escalation
-reads. Tensors follow the scenario tensors' device: on the card the
-solves launch the `pmpc_solve` / `rmpc_solve` kernels when B % 128 == 0.
+cadence, one solve every `control_every` steps after `warmup_steps` of
+rest, and the reference's metrics (steady-state error, convergence time,
+control effort; `logger.py:154-176`) per lane at the end. JAX's
+`lax.cond` on the step index is a host `if` here. Tensors follow the
+scenario tensors' device.
+
+Two kinds of evaluator share each loop. The per-scenario ones
+(`make_pmpc_evaluator`, `make_rmpc_evaluator`) are JAX's single-episode
+evaluators vmapped over the rows: one `PMPC.solve` / `RMPC.solve`
+(`ilqr.solve`, its backward passes on the Riccati kernel on the card) per
+control step. The batch ones solve with `PMPCBatch` / `RMPCBatch`, whose
+whole-solve kernels run on the card when B % 128 == 0; their loop reads
+nothing from the device beyond what the controllers' escalation reads.
 """
 
 from __future__ import annotations
@@ -127,25 +133,13 @@ def _lane_where(mask: torch.Tensor, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
 
 
-def make_pmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
-                              control_every: int = 5, warmup_steps: int = 250,
-                              N: int = 15, u_bound: float = 0.6,
-                              max_iters: int = 4, tol: float = 0.01,
-                              use_kernel: bool = True, kernel_iters: int = 2,
-                              kernel_alphas: int = 3, tray_lag=None):
-    """Batch-major PMPC evaluator: one `PMPCBatch.solve` per control step
-    for the whole batch, the whole-solve kernel on the card when
-    B % 128 == 0, per-object weights per lane. `max_iters` governs the
-    non-kernel branch; `kernel_iters`/`kernel_alphas` the kernel budget
-    (under-converged batches escalate, see PMPCBatch). The controller's
-    Ts is the sim dt, as the reference discretises.
-
-    Returns `evaluate(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2))
-    -> PMPCScenarioResult` with per-lane Metrics."""
-    ctlr = mpc_mod.PMPCBatch(N=N, dt=dt, u_bound=u_bound,
-                             cfg=ilqr.ILQRConfig(max_iters=max_iters),
-                             use_kernel=use_kernel, kernel_iters=kernel_iters,
-                             kernel_alphas=kernel_alphas)
+def _pmpc_episodes(ctlr, n_steps: int, dt: float, control_every: int,
+                   warmup_steps: int, tol: float, tray_lag):
+    """The PMPC evaluators' episode loop around `ctlr` (`PMPC` or
+    `PMPCBatch`): `ctlr.solve` per control step, per-object weights per
+    lane, the model's friction the plant's. Returns `evaluate(kappa_inv
+    (B,2), mass (B,), mu (B,), target_xy (B,2)) -> PMPCScenarioResult` with
+    per-lane Metrics."""
 
     def evaluate(shape_kappa_inv, mass, mu, target_xy):
         dtype, dev = mass.dtype, mass.device
@@ -184,35 +178,64 @@ def make_pmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
     return evaluate
 
 
-def make_rmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
-                              control_every: int = 5, warmup_steps: int = 250,
-                              N: int = 20, max_iters: int = 10,
-                              tol: float = 0.01, use_kernel: bool = True,
-                              kernel_iters: int = 6, kernel_alphas: int = 4,
-                              kernel_al_rounds: int = 3,
-                              kernel_max_extra_rounds: int = 2,
-                              kernel_xla_fallback: bool = True,
-                              tray_lag=None):
-    """Batch-major RMPC evaluator: one `RMPCBatch.solve_batched` per
-    control step for the whole batch, the whole-solve kernel on the card
-    when B % 128 == 0, with escalation and the per-lane rescue. A lane
-    freezes (carry, held control and plant state) once its object is
-    within `tol` of the target (`rob_ctrl.py:391-414`); the batch is
-    still solved whole, so B keeps the kernel's grid.
-
-    The kernel budget defaults (6 iterations x 4 alphas x 3 AL rounds) are
-    higher than RMPCBatch's: closed-loop RLS adaptation can drive the
-    regressor stiff on rolling objects, where an under-converged solve
-    feeds bad control back into the estimator.
+def make_pmpc_evaluator(n_steps: int = 2500, dt: float = 0.002,
+                        control_every: int = 5, warmup_steps: int = 250,
+                        N: int = 15, u_bound: float = 0.6,
+                        max_iters: int = 10, tol: float = 0.01,
+                        tray_lag=None):
+    """Per-scenario PMPC evaluator: JAX's single-episode evaluator on a
+    lane per row, one `PMPC.solve` (`ilqr.solve`, cfg.max_iters =
+    `max_iters`) per control step. The MPC runs every `control_every` sim
+    steps (10 ms, the reference's ~100 Hz parallel solve rate) on a
+    controller discretised at the sim dt, as the reference discretises;
+    the plant at the 2 ms sim cadence with the tray tracking lag standing
+    in for the dual-arm layer.
 
     Returns `evaluate(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2))
     -> PMPCScenarioResult` with per-lane Metrics."""
-    ctlr = mpc_mod.RMPCBatch(
-        N=N, dt=dt, cfg=ilqr.ILQRConfig(max_iters=max_iters, al_iters=3),
-        kernel_iters=kernel_iters, kernel_alphas=kernel_alphas,
-        kernel_al_rounds=kernel_al_rounds,
-        kernel_max_extra_rounds=kernel_max_extra_rounds,
-        kernel_xla_fallback=kernel_xla_fallback)
+    ctlr = mpc_mod.PMPC(N=N, dt=dt, u_bound=u_bound,
+                        cfg=ilqr.ILQRConfig(max_iters=max_iters))
+    return _pmpc_episodes(ctlr, n_steps, dt, control_every, warmup_steps,
+                          tol, tray_lag)
+
+
+def make_pmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
+                              control_every: int = 5, warmup_steps: int = 250,
+                              N: int = 15, u_bound: float = 0.6,
+                              max_iters: int = 4, tol: float = 0.01,
+                              use_kernel: bool = True, kernel_iters: int = 2,
+                              kernel_alphas: int = 3, tray_lag=None):
+    """Batch-major PMPC evaluator: one `PMPCBatch.solve` per control step
+    for the whole batch, the whole-solve kernel on the card when
+    B % 128 == 0, per-object weights per lane. `max_iters` governs the
+    non-kernel branch; `kernel_iters`/`kernel_alphas` the kernel budget
+    (under-converged batches escalate, see PMPCBatch). The controller's
+    Ts is the sim dt, as the reference discretises.
+
+    Returns `evaluate(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2))
+    -> PMPCScenarioResult` with per-lane Metrics."""
+    ctlr = mpc_mod.PMPCBatch(N=N, dt=dt, u_bound=u_bound,
+                             cfg=ilqr.ILQRConfig(max_iters=max_iters),
+                             use_kernel=use_kernel, kernel_iters=kernel_iters,
+                             kernel_alphas=kernel_alphas)
+    return _pmpc_episodes(ctlr, n_steps, dt, control_every, warmup_steps,
+                          tol, tray_lag)
+
+
+def _rmpc_episodes(ctlr, solve, n_steps: int, dt: float,
+                   control_every: int, warmup_steps: int, tol: float,
+                   tray_lag, trace: bool = False, skip_frozen: bool = False):
+    """The RMPC evaluators' episode loop: `solve(carry, obs (B, 4),
+    target4 (B, 4)) -> (carry, u, diag)` per control step, `ctlr` the
+    `RMPC` whose carry it advances. A lane freezes (carry, held control
+    and plant state) once its object is within `tol` of the target
+    (`rob_ctrl.py:391-414`), which also avoids RLS covariance wind-up
+    under zero excitation; the RLS finite difference divides by the
+    controller's dt, the sim dt, although a solve comes every
+    `control_every` steps, as the reference does when solves are
+    throttled. With `trace`, `evaluate` also returns the per-lane
+    trajectories (B, T, ...) of positions, applied controls and the RLS
+    estimate."""
 
     def evaluate(shape_kappa_inv, mass, mu, target_xy):
         dtype, dev = mass.dtype, mass.device
@@ -228,17 +251,21 @@ def make_rmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
                                -1)
 
         s = to_mod.init_state(dtype=dtype, device=dev, batch=B)
-        carry = ctlr.init_carry_batch(observe(s), dtype)
+        carry = ctlr.init_carry(observe(s), dtype)
         # The held control stays 0 until the first solve, at warmup_steps.
         u = torch.zeros((B, 2), dtype=dtype, device=dev)
         stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
         ps = torch.empty((n_steps, B, 2), dtype=dtype, device=dev)
         us = torch.empty_like(ps)
+        thetas = []
         with torch.no_grad():
             for k in range(n_steps):
-                if _solves_at(k, warmup_steps, control_every):
-                    cc_new, u_new, _ = ctlr.solve_batched(
-                        carry, observe(s), target4, use_kernel=use_kernel)
+                # The per-scenario evaluator skips a control step on which
+                # every lane is frozen (one host read), as JAX's cond does.
+                if _solves_at(k, warmup_steps, control_every) and (
+                        not skip_frozen or
+                        not ilqr.host_bool(stopped.all())):
+                    cc_new, u_new, _ = solve(carry, observe(s), target4)
                     # Frozen lanes keep their carry and held control.
                     carry = _lane_where(stopped, carry, cc_new)
                     u = torch.where(stopped[:, None], u, u_new)
@@ -254,7 +281,70 @@ def make_rmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
                 stopped = stopped_n
                 ps[k] = s.p
                 us[k] = u
+                if trace:
+                    thetas.append(torch.cat([carry.rls_x.theta,
+                                             carry.rls_y.theta], -1))
         m = _trace_metrics(ps, us, target_xy, dt, tol)
-        return PMPCScenarioResult(metrics=m, final_p=s.p)
+        res = PMPCScenarioResult(metrics=m, final_p=s.p)
+        if trace:
+            return res, (ps.movedim(0, 1), us.movedim(0, 1),
+                         torch.stack(thetas, 1))
+        return res
 
     return evaluate
+
+
+def make_rmpc_evaluator(n_steps: int = 2500, dt: float = 0.002,
+                        control_every: int = 5, warmup_steps: int = 250,
+                        N: int = 20, max_iters: int = 10, tol: float = 0.01,
+                        trace: bool = False, tray_lag=None):
+    """Per-scenario RMPC (RLS-adaptive) evaluator: JAX's single-episode
+    evaluator on a lane per row, the closed-loop analogue of
+    `rob_ctrl.py:331-416`: one `RMPC.solve` (`ilqr.solve`, `max_iters` x 3
+    AL rounds, slew-exact) per control step of the lanes not yet frozen.
+    With `trace=True` it returns (result, (positions, controls, RLS
+    estimates)), each (B, T, ...), for the episode-JSON logs.
+
+    Returns `evaluate(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2))
+    -> PMPCScenarioResult` with per-lane Metrics."""
+    ctlr = mpc_mod.RMPC(N=N, dt=dt,
+                        cfg=ilqr.ILQRConfig(max_iters=max_iters, al_iters=3))
+    return _rmpc_episodes(ctlr, ctlr.solve, n_steps, dt, control_every,
+                          warmup_steps, tol, tray_lag, trace=trace,
+                          skip_frozen=True)
+
+
+def make_rmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
+                              control_every: int = 5, warmup_steps: int = 250,
+                              N: int = 20, max_iters: int = 10,
+                              tol: float = 0.01, use_kernel: bool = True,
+                              kernel_iters: int = 6, kernel_alphas: int = 4,
+                              kernel_al_rounds: int = 3,
+                              kernel_max_extra_rounds: int = 2,
+                              kernel_xla_fallback: bool = True,
+                              tray_lag=None):
+    """Batch-major RMPC evaluator: one `RMPCBatch.solve_batched` per
+    control step for the whole batch, the whole-solve kernel on the card
+    when B % 128 == 0, with escalation and the per-lane rescue. A lane
+    freezes as in `make_rmpc_evaluator`; the batch is still solved whole
+    on every control step, so B keeps the kernel's grid.
+
+    The kernel budget defaults (6 iterations x 4 alphas x 3 AL rounds) are
+    higher than RMPCBatch's: closed-loop RLS adaptation can drive the
+    regressor stiff on rolling objects, where an under-converged solve
+    feeds bad control back into the estimator.
+
+    Returns `evaluate(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2))
+    -> PMPCScenarioResult` with per-lane Metrics."""
+    ctlr = mpc_mod.RMPCBatch(
+        N=N, dt=dt, cfg=ilqr.ILQRConfig(max_iters=max_iters, al_iters=3),
+        kernel_iters=kernel_iters, kernel_alphas=kernel_alphas,
+        kernel_al_rounds=kernel_al_rounds,
+        kernel_max_extra_rounds=kernel_max_extra_rounds,
+        kernel_xla_fallback=kernel_xla_fallback)
+
+    def solve(carry, obs, target4):
+        return ctlr.solve_batched(carry, obs, target4, use_kernel=use_kernel)
+
+    return _rmpc_episodes(ctlr, solve, n_steps, dt, control_every,
+                          warmup_steps, tol, tray_lag)

@@ -1,23 +1,78 @@
-"""Batched closed loop of a controller and a plant (counterpart of the
-step of `dart_tpu.rollout.evaluate.make_pmpc_batch_evaluator` with
-control_every=1 and warmup_steps=0, of the bench's closed loop, and of the
-LMPC eval episode on the analytic plant).
+"""Closed loops of a controller and a plant, as plain Python loops over
+steps.
 
-A plain Python loop over steps: each step solves, applies the control the
-solver returns and steps the plant.
+`run_closed_loop` is `jax.vmap(dart_tpu.rollout.loop.run_closed_loop)`
+on a leading lane axis: {observe -> (solve | hold) -> apply -> plant
+step}, with the reference's asynchrony made explicit (`control_every`
+for an MPC slower than the plant, `warmup_steps` of rest, a `hold_fn`
+such as `LMPC.shift_plan` between solves). `run_batch_closed_loop` is the
+batch controllers' loop (the bench's closed loop, and the LMPC eval
+episode on the analytic plant): solve every step, apply, step the plant.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from dart_tpu_torch.control.mpc import (LMPC_DEFAULT_WEIGHTS, LMPCBatch,
                                         LMPCWeights, PMPCBatch, PMPCWeights,
                                         RMPCBatch, RMPCWeights,
-                                        RMPC_DEFAULT_WEIGHTS)
+                                        RMPC_DEFAULT_WEIGHTS, SolveDiag)
 from dart_tpu_torch.models import dynamics as dyn
+
+
+class ClosedLoopResult(NamedTuple):
+    X: torch.Tensor          # (B, T+1, nx_plant) plant states, x0 first
+    U: torch.Tensor          # (B, T, nu) applied controls
+    diag: SolveDiag          # (B, T) per-step diagnostics (0 on hold steps)
+    carry: Any               # final controller carry
+
+
+def _zero_diag(B: int, dtype, device) -> SolveDiag:
+    z = torch.zeros((B,), dtype=dtype, device=device)
+    return SolveDiag(z, z, torch.zeros((B,), dtype=torch.int32,
+                                       device=device), z)
+
+
+def run_closed_loop(solve_fn: Callable, plant_step: Callable, carry0: Any,
+                    x0: torch.Tensor, target: torch.Tensor, plant_params: Any,
+                    n_steps: int, observe: Callable = lambda x: x,
+                    control_every: int = 1, warmup_steps: int = 0,
+                    hold_fn: Optional[Callable] = None) -> ClosedLoopResult:
+    """`n_steps` of the closed loop on lanes x0 (B, nx).
+
+    solve_fn(carry, obs, target) -> (carry, u (B, 2), diag) runs at step k
+    when k >= warmup_steps and (k - warmup_steps) % control_every == 0;
+    otherwise hold_fn(carry, obs, target) -> (carry, u, diag), or, without
+    one, the held control with zero diagnostics. Before warmup_steps the
+    plant gets u = 0. plant_step(x, u, plant_params) -> x_next.
+    """
+    B, dtype, dev = x0.shape[0], x0.dtype, x0.device
+    carry, x = carry0, x0
+    u_held = torch.zeros((B, 2), dtype=dtype, device=dev)
+    xs, us, diags = [x0], [], []
+    with torch.no_grad():
+        for k in range(n_steps):
+            obs = observe(x)
+            if k >= warmup_steps and (k - warmup_steps) % control_every == 0:
+                carry, u, diag = solve_fn(carry, obs, target)
+            elif hold_fn is not None:
+                carry, u, diag = hold_fn(carry, obs, target)
+            else:
+                u, diag = u_held, _zero_diag(B, dtype, dev)
+            if k < warmup_steps:
+                u = torch.zeros_like(u)
+            x = plant_step(x, u, plant_params)
+            u_held = u
+            xs.append(x)
+            us.append(u)
+            diags.append(diag)
+    return ClosedLoopResult(
+        X=torch.stack(xs, 1), U=torch.stack(us, 1),
+        diag=SolveDiag(*(torch.stack(d, 1) for d in zip(*diags))),
+        carry=carry)
 
 
 def pmpc_solve_fn(ctlr: PMPCBatch, targets: torch.Tensor,

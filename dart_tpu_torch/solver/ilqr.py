@@ -1,6 +1,5 @@
 """Batched constrained trajectory optimisation: box-DDP with an
-augmented-Lagrangian outer loop (port of `dart_tpu.solver.ilqr`, the
-batch-major parts).
+augmented-Lagrangian outer loop (port of `dart_tpu.solver.ilqr`).
 
 Batch-first throughout: z (B, nz), V (B, N, nu), per-lane cost data and
 parameters with a leading batch axis, or python scalars that broadcast.
@@ -8,7 +7,9 @@ The Riccati backward pass is `ops.kernels.riccati.riccati_backward`: its
 CUDA kernel on a card, its plain version on the CPU. Linearisation is the
 OCP's closed form when it gives one, else `torch.func.jacfwd`/`hessian`
 under `torch.func.vmap` over lanes and stages. JAX's `while_loop`s become
-host loops; each loop test reads the device (`host_bool`).
+host loops; each loop test reads the device (`host_bool`). `solve` is
+`vmap(solve)` of the JAX package on a leading lane axis, `solve_batch` its
+batch-major solve; the two differ in what a finished lane keeps.
 """
 
 from __future__ import annotations
@@ -153,8 +154,7 @@ def _linearize(ocp: OCPDef, params, aux, Z, V, lam, mu):
                 return ocp.dyn_jac(z, v, p)
         else:
             def dyn_jac(z, v):
-                return (jacfwd(ocp.step, argnums=0)(z, v, p),
-                        jacfwd(ocp.step, argnums=1)(z, v, p))
+                return jacfwd(ocp.step, argnums=(0, 1))(z, v, p)
         A, Bm = vmap(dyn_jac)(Zl[:-1], Vl)
 
         if ocp.cost_quad is not None:
@@ -170,17 +170,23 @@ def _linearize(ocp: OCPDef, params, aux, Z, V, lam, mu):
                                             lam_k, mul)
                     return c
 
-                zv = torch.cat([z, v])
-                g = grad(l_of)(zv)
-                H = hessian(l_of)(zv)
+                # The gradient is the primal of the Hessian's forward pass.
+                def g_twice(zv):
+                    g = grad(l_of)(zv)
+                    return g, g
+
+                H, g = jacfwd(g_twice, has_aux=True)(torch.cat([z, v]))
                 return g[:nz], g[nz:], H[:nz, :nz], H[nz:, :nz], H[nz:, nz:]
         lx, lu, lxx, lux, luu = vmap(cost_quad)(ks, Zl[:-1], Vl, laml)
 
         if ocp.term_quad is not None:
             gx, gxx = ocp.term_quad(Zl[-1], a)
         else:
-            gx = grad(ocp.term_cost)(Zl[-1], a)
-            gxx = hessian(ocp.term_cost)(Zl[-1], a)
+            def gt_twice(z):
+                g = grad(ocp.term_cost)(z, a)
+                return g, g
+
+            gxx, gx = jacfwd(gt_twice, has_aux=True)(Zl[-1])
         return A, Bm, lx, lu, lxx, lux, luu, gx, gxx
 
     return vmap(lane, in_dims=(_batch_axes(params, Bt), _batch_axes(aux, Bt),
@@ -218,11 +224,92 @@ def _alphas(n: int, dtype, device) -> torch.Tensor:
                                        device=device)).to(dtype)
 
 
+def _backtrack(ocp, params, aux, Z, V, D, Ks, lam, mu, cost, alphas, u_lo,
+               u_hi, skip):
+    """Per-lane backtracking: each lane not in `skip` takes the first alpha
+    whose trial beats its cost by 1e-12, trying them in order until every
+    lane has one or the schedule ends; one host read per trial. Returns
+    (accepted, Z, V, cost); a lane without a trial keeps its inputs."""
+    B = V.shape[0]
+    i, acc = 0, skip
+    Zb, Vb, cb = Z, V, cost
+    while i < alphas.shape[0] and not host_bool(acc.all()):
+        Zc, Vc, cc = _forward(ocp, params, aux, Z, V, D, Ks, lam, mu,
+                              alphas[i].expand(B), u_lo, u_hi)
+        newly = (~acc) & (cc < cost - 1e-12)
+        Zb = torch.where(newly[:, None, None], Zc, Zb)
+        Vb = torch.where(newly[:, None, None], Vc, Vb)
+        cb = torch.where(newly, cc, cb)
+        acc = acc | newly
+        i += 1
+    return acc, Zb, Vb, cb
+
+
+def _parallel(ocp, params, aux, Z, V, D, Ks, lam, mu, alphas, u_lo, u_hi):
+    """Every alpha's trial, then per lane the one of least cost (argmin:
+    the first on ties, a NaN cost wins, as `jnp.argmin`). Returns (Z, V,
+    cost) of that trial."""
+    B = V.shape[0]
+    trials = [_forward(ocp, params, aux, Z, V, D, Ks, lam, mu, a.expand(B),
+                       u_lo, u_hi) for a in alphas]
+    costs = torch.stack([t[2] for t in trials])               # (n_alphas, B)
+    best = torch.argmin(costs, dim=0)
+    lane = torch.arange(B, device=V.device)
+    return (torch.stack([t[0] for t in trials])[best, lane],
+            torch.stack([t[1] for t in trials])[best, lane],
+            costs[best, lane])
+
+
+def _al_rounds(ocp: OCPDef, cfg: ILQRConfig, aux, V: torch.Tensor,
+               inner: Callable) -> ILQRSolution:
+    """The augmented-Lagrangian outer loop around `inner(V, lam, mu) ->
+    (Z, V, K, iters, gnorm)`, with per-lane multipliers and penalties
+    (`cfg.al_iters` rounds); an OCP with n_con == 0 runs `inner` once on
+    the placeholder lam (B, N, 1) and mu = 1. `iters` is one count for the
+    batch (an int) or per lane ((B,) int32); the solution's K and
+    grad_norm are the last round's, its cost the unpenalised one."""
+    B, N, _ = V.shape
+    dtype, dev = V.dtype, V.device
+
+    def lanes(it):
+        if isinstance(it, torch.Tensor):
+            return it.to(torch.int32)
+        return torch.full((B,), it, dtype=torch.int32, device=dev)
+
+    if ocp.n_con == 0:
+        lam0 = torch.zeros((B, N, 1), dtype=dtype, device=dev)
+        mu0 = torch.ones((B,), dtype=dtype, device=dev)
+        Z, V, K, it, gnorm = inner(V, lam0, mu0)
+        return ILQRSolution(
+            V=V, Z=Z, K=K, cost=_raw_cost(ocp, aux, Z, V),
+            viol=torch.zeros((B,), dtype=dtype, device=dev),
+            iters=lanes(it), grad_norm=gnorm)
+
+    lam = torch.zeros((B, N, ocp.n_con), dtype=dtype, device=dev)
+    mu = torch.full((B,), cfg.mu_init, dtype=dtype, device=dev)
+    tot_it = 0
+    for _ in range(cfg.al_iters):
+        Z, V, K, it, gnorm = inner(V, lam, mu)
+        C = torch.stack([ocp.constraints(Z[:, k], V[:, k], k, aux)
+                         for k in range(N)], dim=1)        # (B, N, n_con)
+        lam = torch.clamp_min(lam + mu[:, None, None] * C, 0.0)
+        viol = torch.amax(torch.clamp_min(C, 0.0), dim=(1, 2))
+        mu = torch.where(viol > cfg.tol_con,
+                         torch.clamp_max(mu * cfg.mu_scale, cfg.mu_max), mu)
+        tot_it = tot_it + it
+    return ILQRSolution(
+        V=V, Z=Z, K=K, cost=_raw_cost(ocp, aux, Z, V), viol=viol,
+        iters=lanes(tot_it), grad_norm=gnorm)
+
+
 def solve_batch(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: torch.Tensor,
                 V_init: torch.Tensor) -> ILQRSolution:
     """Batch-major solve with per-lane regularisation, backtracking,
     acceptance and convergence masks; OCPs with n_con > 0 run the
     augmented-Lagrangian outer loop with per-lane multipliers/penalties.
+    The batch iterates while any lane is not done, and a done lane's
+    regularisation and gnorm keep moving (only Z, V, K and cost freeze),
+    as in `dart_tpu.solver.ilqr.solve_batch`; `iters` is the batch's count.
 
     params/aux: NamedTuples with batched (B, ...) or shared leaves;
     z0 (B, nz), V_init (B, N, nu). Returns a batched ILQRSolution.
@@ -231,7 +318,6 @@ def solve_batch(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: torch.Tensor,
     dtype, dev = V_init.dtype, V_init.device
     u_lo = torch.tensor(ocp.u_lo, dtype=dtype, device=dev)
     u_hi = torch.tensor(ocp.u_hi, dtype=dtype, device=dev)
-    V = _clip(V_init, u_lo, u_hi)
     alphas = _alphas(cfg.n_alphas, dtype, dev)
 
     def inner(V, lam, mu):
@@ -246,20 +332,8 @@ def solve_batch(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: torch.Tensor,
         while it < cfg.max_iters and not host_bool(done.all()):
             derivs = _linearize(ocp, params, aux, Z, V, lam, mu)
             D, Ks = backward(derivs, V, ocp.u_lo, ocp.u_hi, reg)
-            # Per-lane backtracking: each lane advances its own alpha until
-            # it accepts or exhausts the schedule.
-            i, acc = 0, done
-            Zb, Vb, cb = Z, V, cost
-            while i < cfg.n_alphas and not host_bool(acc.all()):
-                al = alphas[i].expand(B)
-                Zc, Vc, cc = _forward(ocp, params, aux, Z, V, D, Ks, lam, mu,
-                                      al, u_lo, u_hi)
-                newly = (~acc) & (cc < cost - 1e-12)
-                Zb = torch.where(newly[:, None, None], Zc, Zb)
-                Vb = torch.where(newly[:, None, None], Vc, Vb)
-                cb = torch.where(newly, cc, cb)
-                acc = acc | newly
-                i += 1
+            acc, Zb, Vb, cb = _backtrack(ocp, params, aux, Z, V, D, Ks, lam,
+                                         mu, cost, alphas, u_lo, u_hi, done)
             improved = acc & (~done)
             Z = torch.where(improved[:, None, None], Zb, Z)
             V = torch.where(improved[:, None, None], Vb, V)
@@ -276,32 +350,73 @@ def solve_batch(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: torch.Tensor,
             it += 1
         return Z, V, K, it, gnorm
 
-    if ocp.n_con == 0:
-        lam0 = torch.zeros((B, N, 1), dtype=dtype, device=dev)
-        mu0 = torch.ones((B,), dtype=dtype, device=dev)
-        Z, V, K, it, gnorm = inner(V, lam0, mu0)
-        return ILQRSolution(
-            V=V, Z=Z, K=K, cost=_raw_cost(ocp, aux, Z, V),
-            viol=torch.zeros((B,), dtype=dtype, device=dev),
-            iters=torch.full((B,), it, dtype=torch.int32, device=dev),
-            grad_norm=gnorm)
+    return _al_rounds(ocp, cfg, aux, _clip(V_init, u_lo, u_hi), inner)
 
-    lam = torch.zeros((B, N, ocp.n_con), dtype=dtype, device=dev)
-    mu = torch.full((B,), cfg.mu_init, dtype=dtype, device=dev)
-    tot_it = 0
-    for _ in range(cfg.al_iters):
-        Z, V, K, it, gnorm = inner(V, lam, mu)
-        C = torch.stack([ocp.constraints(Z[:, k], V[:, k], k, aux)
-                         for k in range(N)], dim=1)        # (B, N, n_con)
-        lam = torch.clamp_min(lam + mu[:, None, None] * C, 0.0)
-        viol = torch.amax(torch.clamp_min(C, 0.0), dim=(1, 2))
-        mu = torch.where(viol > cfg.tol_con,
-                         torch.clamp_max(mu * cfg.mu_scale, cfg.mu_max), mu)
-        tot_it += it
-    return ILQRSolution(
-        V=V, Z=Z, K=K, cost=_raw_cost(ocp, aux, Z, V), viol=viol,
-        iters=torch.full((B,), tot_it, dtype=torch.int32, device=dev),
-        grad_norm=gnorm)
+
+def solve(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: torch.Tensor,
+          V_init: torch.Tensor) -> ILQRSolution:
+    """`jax.vmap(dart_tpu.solver.ilqr.solve)` on a leading lane axis: each
+    lane runs its own iLQR (both line searches, `cfg.linesearch`) and AL
+    rounds, and a lane whose loop has ended keeps its whole carry (Z, V,
+    K, cost, iteration count, regularisation and gnorm) while the others
+    go on. `iters` is each lane's own count summed over the AL rounds, and
+    `grad_norm` the max |feedforward| of the lane's last executed
+    iteration. Every backward pass is one `riccati_backward` call.
+
+    The loop reads "some lane still active" on the host once per
+    iteration, and the backtracking search once per trial (`host_bool`).
+
+    params/aux: NamedTuples with per-lane (B, ...) or shared leaves;
+    z0 (B, nz), V_init (B, N, nu). Returns an ILQRSolution of (B, ...)
+    leaves.
+    """
+    B, N, nu = V_init.shape
+    dtype, dev = V_init.dtype, V_init.device
+    u_lo = torch.tensor(ocp.u_lo, dtype=dtype, device=dev)
+    u_hi = torch.tensor(ocp.u_hi, dtype=dtype, device=dev)
+    alphas = _alphas(cfg.n_alphas, dtype, dev)
+
+    def inner(V, lam, mu):
+        Z = _rollout(ocp, params, z0, V)
+        cost = _total_cost(ocp, params, aux, Z, V, lam, mu)
+        K = torch.zeros((B, N, nu, Z.shape[-1]), dtype=dtype, device=dev)
+        it = torch.zeros((B,), dtype=torch.int32, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        reg = torch.full((B,), cfg.reg_init, dtype=dtype, device=dev)
+        gnorm = torch.full((B,), float("inf"), dtype=dtype, device=dev)
+        while True:
+            active = (it < cfg.max_iters) & (~done)
+            if not host_bool(active.any()):
+                return Z, V, K, it, gnorm
+            derivs = _linearize(ocp, params, aux, Z, V, lam, mu)
+            D, Ks = backward(derivs, V, ocp.u_lo, ocp.u_hi, reg)
+            if cfg.linesearch == "backtrack":
+                _, Zb, Vb, cb = _backtrack(ocp, params, aux, Z, V, D, Ks,
+                                           lam, mu, cost, alphas, u_lo, u_hi,
+                                           ~active)
+            else:
+                Zb, Vb, cb = _parallel(ocp, params, aux, Z, V, D, Ks, lam,
+                                       mu, alphas, u_lo, u_hi)
+            improved = cb < cost - 1e-12
+            gnorm_n = torch.amax(torch.abs(D), dim=(1, 2))
+            rel = (cost - cb) / (torch.abs(cost) + 1.0)
+            done_n = (improved & (rel < cfg.tol_cost)) | \
+                (gnorm_n < cfg.tol_step) | ((~improved) & (reg >= cfg.reg_max))
+            reg_n = torch.where(
+                improved, torch.clamp_min(reg * cfg.reg_down, cfg.reg_min),
+                torch.clamp_max(reg * cfg.reg_up, cfg.reg_max))
+            # A lane whose loop has ended keeps its carry.
+            step = active & improved
+            Z = torch.where(step[:, None, None], Zb, Z)
+            V = torch.where(step[:, None, None], Vb, V)
+            K = torch.where(step[:, None, None, None], Ks, K)
+            cost = torch.where(step, cb, cost)
+            reg = torch.where(active, reg_n, reg)
+            gnorm = torch.where(active, gnorm_n, gnorm)
+            done = torch.where(active, done_n, done)
+            it = it + active.to(torch.int32)
+
+    return _al_rounds(ocp, cfg, aux, _clip(V_init, u_lo, u_hi), inner)
 
 
 def projected_grad_norm(ocp: OCPDef, params, aux, z0: torch.Tensor,

@@ -5,7 +5,8 @@ over are the tuning tables, the per-lane params and cost data, the carries
 (the RLS estimates, the governor's reference, the stiction integral and
 the LMPC plan index included), the solve diagnostics, the contact plant's
 params and state (its bool `toppled` stays bool), the scenario batches and
-the evaluators' metrics and sweep aggregates, all NamedTuples
+the evaluators' metrics and sweep aggregates, the closed-loop results,
+all NamedTuples
 with the same names and fields in both packages; NamedTuples nest
 (`RMPCCarry` holds two `RLSState`s). Arrays cross as numpy; python floats
 stay python floats (so a static gravity stays static), and None stays
@@ -29,6 +30,7 @@ from dart_tpu_torch.parallel.sweep import SweepAggregate
 from dart_tpu_torch.physics.tray_object import (TrayObjectParams,
                                                 TrayObjectState)
 from dart_tpu_torch.rollout.evaluate import PMPCScenarioResult
+from dart_tpu_torch.rollout.loop import ClosedLoopResult
 from dart_tpu_torch.rollout.metrics import Metrics
 from dart_tpu_torch.solver.ilqr import ILQRSolution
 from dart_tpu_torch.solver.ocp import LMPCAux, PMPCAux, RMPCAux
@@ -38,7 +40,7 @@ _TUPLES = {cls.__name__: cls for cls in
             RMPCParams, RMPCAux, RMPCWeights, RMPCCarry, RLSState,
             ILQRSolution, LMPCAux, LMPCWeights, LMPCCarry,
             TrayObjectParams, TrayObjectState, Metrics, ScenarioBatch,
-            PMPCScenarioResult, SweepAggregate)}
+            PMPCScenarioResult, SweepAggregate, ClosedLoopResult)}
 
 
 def _is_namedtuple(x) -> bool:

@@ -254,7 +254,7 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
             (["--controller", "pmpc", "--batch_major", "--cpu"],
              "supports --controller rmpc"),
             (["--controller", "lmpc", "--cpu"], "Queue 1 item 4"),
-            (["--controller", "rmpc", "--cpu"], "Queue 1 item 3")):
+            (["--controller", "mppi", "--cpu"], "Queue 1 item 6")):
         with pytest.raises(SystemExit) as e:
             tcli.main(argv)
         assert e.value.code != 0

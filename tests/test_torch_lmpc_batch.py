@@ -101,7 +101,7 @@ def test_shift_plan_matches_jax():
     tcarry = from_jax(jcarry, "cpu")
     for _ in range(3):
         jcarry, ju = jc.shift_plan_batched(jcarry)
-        tcarry, tu = tc.shift_plan_batched(tcarry)
+        tcarry, tu = tc.shift_plan(tcarry)
         np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
         _carry_close(tcarry, jcarry, atol=0)
     one = jmpc.LMPCCarry(*(x[2] for x in jcarry))
@@ -109,8 +109,6 @@ def test_shift_plan_matches_jax():
     got = tc.shift_plan(from_jax(one, "cpu"))
     _carry_close(got[0], want[0], atol=0)
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
-    with pytest.raises(NotImplementedError, match="ilqr.solve"):
-        tc.solve(got[0], torch.zeros(8), torch.zeros(8), torch.zeros(34))
 
 
 # ---- the kernel branch in closed loop (B=128, N=6) ----
@@ -201,7 +199,7 @@ def test_kernel_branch_closed_loop_matches_jax(jax_kernel_body):
 
     _, tx, t_us = loop.run_batch_closed_loop(
         loop.lmpc_solve_fn(tc, tg_t, pv_t), loop.lmpc_plant_step(pv_t, DT),
-        tc.init_carry_batch(BK, torch.float64, "cpu"),
+        tc.init_carry(BK, torch.float64, "cpu"),
         torch.zeros((BK, 8), dtype=torch.float64), STEPS_K)
     np.testing.assert_allclose(t_us.numpy(), np.stack(j_us), rtol=0,
                                atol=1e-5)
@@ -224,7 +222,7 @@ def test_kernel_branch_counts_rounds_and_restarts_nan_lanes(monkeypatch):
 
     monkeypatch.setattr(tmpc, "lmpc_solve", counted)
     tc = tmpc.LMPCBatch(N=NK, dt=DT, **KCFG)
-    carry = tc.init_carry_batch(BK, torch.float64, "cpu")
+    carry = tc.init_carry(BK, torch.float64, "cpu")
     _, u, diag = tc.solve_batched(carry, torch.zeros((BK, 8)).double(),
                                   torch.from_numpy(tg), torch.from_numpy(pv))
     assert len(calls) == 1 + KCFG["kernel_max_extra_rounds"]
@@ -237,14 +235,14 @@ def test_kernel_branch_counts_rounds_and_restarts_nan_lanes(monkeypatch):
 # ---- the solve_batch branch in a 20-step closed loop (B=8) ----
 
 def test_lmpc_plant_closed_loop_matches_jax():
-    """20 steps at B=8 (off the kernel's grid: solve_batch with the
+    """10 steps at B=8 (off the kernel's grid: solve_batch with the
     closed-form linearisation, the CLI's 4 iterations) on the LMPC plant.
     At every step of JAX's loop the port solves from the same carry and
     state, to 1e-10. The port's own loop, `run_batch_closed_loop` with
     `lmpc_solve_fn` and `lmpc_plant_step`, carries those ulps through the
     stiff plant (eps = 0.01) and a saturating tilt: it agrees with JAX's to
     1e-7 (3e-9 at this seed, largest at step 2, decaying after)."""
-    B, N, steps = 8, 6, 20
+    B, N, steps = 8, 6, 10
     pv, tg = _plant_scenario(2, B)
     pv_t, tg_t = torch.from_numpy(pv), torch.from_numpy(tg)
     kw = dict(N=N, dt=DT, fast=True)
@@ -275,7 +273,7 @@ def test_lmpc_plant_closed_loop_matches_jax():
     solve_fn = loop.lmpc_solve_fn(tc, tg_t, pv_t)
     tcarry, tx, t_us = loop.run_batch_closed_loop(
         solve_fn, loop.lmpc_plant_step(pv_t, DT),
-        tc.init_carry_batch(B, torch.float64, "cpu"),
+        tc.init_carry(B, torch.float64, "cpu"),
         torch.zeros((B, 8), dtype=torch.float64), steps)
     np.testing.assert_allclose(t_us.numpy(), np.stack(j_us), rtol=0,
                                atol=1e-7)
@@ -322,7 +320,7 @@ def test_sample_true_params_and_target_support():
 def test_carry_converts_and_init_matches_jax():
     jc, tc = jmpc.LMPCBatch(N=7), tmpc.LMPCBatch(N=7)
     want = jc.init_carry_batch(5, jnp.float64)
-    got = tc.init_carry_batch(5, torch.float64, "cpu")
+    got = tc.init_carry(5, torch.float64, "cpu")
     _carry_close(got, want, atol=0)
     conv = from_jax(want, "cpu")
     assert type(conv) is tmpc.LMPCCarry and conv.plan_idx.dtype == torch.int32

@@ -70,7 +70,7 @@ def _jax_carry(ctlr, states, th):
 
 
 def _torch_carry(ctlr, states, th):
-    carry = ctlr.init_carry_batch(torch.from_numpy(states), torch.float64)
+    carry = ctlr.init_carry(torch.from_numpy(states), torch.float64)
     return carry._replace(
         rls_x=RLSState(theta=torch.from_numpy(th[:, :7]), P=carry.rls_x.P),
         rls_y=RLSState(theta=torch.from_numpy(th[:, 7:]), P=carry.rls_y.P))
@@ -193,7 +193,7 @@ def test_closed_loop_matches_jax(jax_solve):
     solve_fn = loop.rmpc_solve_fn(tc, torch.from_numpy(t4))
     tcarry, tx, t_us = loop.run_batch_closed_loop(
         solve_fn, loop.pmpc_plant_step(torch.from_numpy(mus), DT),
-        tc.init_carry_batch(torch.from_numpy(x0[:, :4]), torch.float64),
+        tc.init_carry(torch.from_numpy(x0[:, :4]), torch.float64),
         torch.from_numpy(x0), STEPS)
     np.testing.assert_allclose(t_us.numpy(), np.stack(j_us), rtol=0,
                                atol=ATOL)
@@ -239,7 +239,7 @@ def test_rls_transient_is_infeasible_in_jax_too():
     tc = ctl(tmpc)
     tplant = loop.pmpc_plant_step(torch.from_numpy(mus), dt)
     tx = torch.zeros((b, 6), dtype=torch.float64)
-    tcarry = tc.init_carry_batch(tx[:, :4], torch.float64)
+    tcarry = tc.init_carry(tx[:, :4], torch.float64)
     for step in range(steps):
         jcarry, ju, jd = jsolve(jcarry, jx[:, :4], jnp.asarray(t4))
         jx = jplant(jx, ju, jnp.asarray(mus))

@@ -221,7 +221,7 @@ def test_stiction_update_and_init_carry_match_jax():
     assert np.any(np.abs(got[0].numpy()) == tc.int_max)
 
     jcarry = jc.init_carry_batch(jnp.asarray(state), jnp.float64)
-    tcarry = tc.init_carry_batch(torch.from_numpy(state), torch.float64)
+    tcarry = tc.init_carry(torch.from_numpy(state), torch.float64)
     conv = from_jax(jcarry, "cpu")
     for name in tcarry._fields:
         a, b = getattr(tcarry, name), getattr(conv, name)
