@@ -90,7 +90,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
    SWEEP_INSTANCE_RUNTIME` (the per-scenario PMPC evaluator, 18 lanes),
    gated on JAX's own row count and each row's error and effort
    (JAX_SWEEP_INSTANCE);
-19. times (printed, not gated): each kernel and its plain version per call
+19. ppo: the converted `general` tuner (artifacts/lmpc/general/
+   best_agent.pt): its forward pass, `ppo_loss` and its gradient, and one
+   `ppo_update` with equal permutations on the card against the same calls
+   on CPU tensors, float64 (1e-10) and float32 (1e-5, 2-norm relative);
+20. lmpc-train: float64 `collect_rollout` at the `lmpc` command's settings
+   (8 envs, N=12, dt=0.01, 4 iterations, the 520-wide policy) against the
+   same call on CPU tensors with the same CPU-drawn inputs (1e-9), every
+   backward pass a Riccati launch; the Riccati kernel's time at that
+   shape; `lmpc --train` for 2 updates of 8 envs x 8 steps (finite
+   losses, moved parameters, checkpoints written and reloaded equal) and
+   `lmpc --test` on what it wrote, printing seconds per train step and
+   per control step, launches and host reads;
+21. lmpc-eval: `make_lmpc_evaluator` in float64 with the converted
+   lagplant_r5 tuner on four rows, held to JAX's own run (JAX_LMPC_EVAL)
+   within 1e-9; then `lmpc --test --env cube_1x0_0x1` and `sweep
+   --controller lmpc` at short runtimes, gated on exit 0 and finite rows;
+22. times (printed, not gated): each kernel and its plain version per call
    (CUDA events), each kernel's device time per launch (torch.profiler),
    the closed-loop steps (host clock), and each kernel's launch geometry
    (threads, lanes and shared bytes per block, resident blocks per SM).
@@ -1541,11 +1557,10 @@ def phase_profile(dev: torch.device, card: str) -> None:
     traced_steps(lmpc_step, 20, card, "LMPC closed loop, steps 200-220")
 
     from dart_tpu_torch.physics import tray_object as to
-    from dart_tpu_torch.rollout import evaluate
 
     sc = eval_scenarios(dev)
-    params = evaluate._tray_params(sc.kappa_inv, sc.mass, sc.mu,
-                                   torch.float32)
+    params = to.scenario_params(sc.kappa_inv, sc.mass, sc.mu,
+                                torch.float32)
     u = torch.full((B, 2), 0.05, dtype=torch.float32, device=dev)
     cst = {"s": to.init_state(device=dev, batch=B)}
 
@@ -1715,10 +1730,9 @@ def plant_step_ms(sc, dev: torch.device, n: int = 500) -> float:
     B lanes; the evaluators observe only at control steps), synchronised
     over n steps."""
     from dart_tpu_torch.physics import tray_object as to
-    from dart_tpu_torch.rollout import evaluate
 
-    params = evaluate._tray_params(sc.kappa_inv, sc.mass, sc.mu,
-                                   torch.float32)
+    params = to.scenario_params(sc.kappa_inv, sc.mass, sc.mu,
+                                torch.float32)
     s = to.init_state(device=dev, batch=B)
     u = torch.full((B, 2), 0.05, dtype=torch.float32, device=dev)
     with torch.no_grad():
@@ -2125,6 +2139,7 @@ def solve_problems(dtype: torch.dtype, dev: torch.device, n: int,
     from dart_tpu_torch.control import mpc
     from dart_tpu_torch.io import scenes
     from dart_tpu_torch.models import dynamics as dyn
+    from dart_tpu_torch.physics import tray_object as to
     from dart_tpu_torch.rollout import evaluate
     from dart_tpu_torch.solver import ilqr
 
@@ -2150,7 +2165,7 @@ def solve_problems(dtype: torch.dtype, dev: torch.device, n: int,
     tg[:, 0], tg[:, 2], tg[:, 4] = 0.05, -0.04, 0.43
     ctl = mpc.PMPC(N=15, dt=DT, u_bound=0.6,
                    cfg=ilqr.ILQRConfig(max_iters=iters))
-    w = evaluate._select_weights(evaluate._shape_id(grid.kappa_inv), dtype)
+    w = evaluate._select_weights(to.shape_from_kappa(grid.kappa_inv), dtype)
     aux = mpc._pmpc_aux(x[:n], tg[:n], mpc.PMPCWeights(*(v[:n] for v in w)))
     out.append(("pmpc", ctl.ocp, ctl.cfg,
                 dyn.PMPCParams(mu=grid.mu[:n], dt=DT), aux, x[:n],
@@ -2380,9 +2395,9 @@ def phase_solve(dev: torch.device, card: str) -> dict:
     return {"worst_f64": worst, "per": out}
 
 
-def run_cli(argv: list[str]):
-    """One command through the dispatcher's `main`, stdout captured; returns
-    (rc, the JSON on its last line, riccati launches, host reads, wall s)."""
+def run_cli_text(argv: list[str]):
+    """One command through the dispatcher's `main`, stdout captured;
+    returns (rc, its stdout, riccati launches, host reads, wall s)."""
     from dart_tpu_torch.cli.__main__ import main as dispatch
     from dart_tpu_torch.ops.kernels.riccati import riccati_backward
     from dart_tpu_torch.solver import ilqr
@@ -2394,11 +2409,16 @@ def run_cli(argv: list[str]):
     with contextlib.redirect_stdout(buf):
         rc = dispatch(argv)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    text = buf.getvalue().strip()
+    return (rc, buf.getvalue().strip(), riccati_backward.launches,
+            ilqr.host_bool.count, time.perf_counter() - t0)
+
+
+def run_cli(argv: list[str]):
+    """`run_cli_text` with the JSON on the command's last line (the whole
+    output for `sweep`) in place of its stdout."""
+    rc, text, ric, reads, wall = run_cli_text(argv)
     return (rc, json.loads(text if argv[0] == "sweep" else
-                           text.splitlines()[-1]),
-            riccati_backward.launches, ilqr.host_bool.count, wall)
+                           text.splitlines()[-1]), ric, reads, wall)
 
 
 def phase_cli(kind: str, card: str) -> dict:
@@ -2471,15 +2491,14 @@ def plant_step_ms_lane1(n: int = 200) -> float:
     """Host-clock ms of one calibrated contact-plant step at B=1 (the
     commands' cube row), synchronised over n steps."""
     from dart_tpu_torch.physics import tray_object as to
-    from dart_tpu_torch.rollout import evaluate
 
     dev = torch.device("cuda", 0)
 
     def lane(x):
         return torch.tensor([x], dtype=torch.float32, device=dev)
 
-    params = evaluate._tray_params(lane([0.0, 0.0]), lane(1.0), lane(0.1),
-                                   torch.float32)
+    params = to.scenario_params(lane([0.0, 0.0]), lane(1.0), lane(0.1),
+                                torch.float32)
     s = to.init_state(device=dev, batch=1)
     u = torch.full((1, 2), 0.05, dtype=torch.float32, device=dev)
     with torch.no_grad():
@@ -2532,10 +2551,735 @@ def phase_sweep_instance(card: str) -> dict:
             "n_converged": n_conv}
 
 
+# ---------------------------------------------------------------------------
+# PPO, the LMPC trainers and the trained-policy LMPC evaluator
+# ---------------------------------------------------------------------------
+
+# The trained-policy evaluator on the four rows of
+# tests/test_rmpc_batch_eval.py with the lagplant_r5 tuner, float64: 12
+# control periods of 5 plant steps, the policy solving at each, its
+# controls applied from the sixth (warmup_steps 25), at the evaluator's
+# N=12 and four iterations. JAX's own run on the CPU (script mode of
+# tests/test_torch_lmpc_eval.py; convergence_time None = inf), each row's
+# init_k its draw from jax.random.split(PRNGKey(0), 4):
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_lmpc_eval.py
+LMPC_EVAL = dict(n_steps=60, control_every=5, warmup_steps=25, N=12,
+                 max_iters=4, tol=0.01, trace=True)
+JAX_LMPC_EVAL = {
+    "init_k": [[0.9702485180099899, 0.32203004128479923, 0.6644854265658197,
+                0.9914729435715177, 0.2896963263882896, 0.3619338852146325,
+                0.5300045446233874, 0.32938226622175326, 0.06809096367960946,
+                0.6189599831680018, 0.9551784249691333, 0.8403787934809114,
+                0.7949093470406684, 0.18634696253635277, 0.3793607684220101,
+                0.7715128759026629, 0.832242199986808, 0.35806824096345014,
+                0.7659297837367471, 0.9276007227398713, 0.05972139138904584,
+                0.48749431059407167, 0.28092631084789255, 0.7935859340612128,
+                0.3424837692181052, 0.9177886527702978, 0.2838285183122756,
+                0.12799933639570726, 0.7121970085651501, 0.7492683839890388,
+                0.3863575896322451, 0.37194454579385455, 0.365803623964336,
+                0.7663602768509719],
+               [0.08981812299767289, 0.9247093472057999, 0.7366128216853052,
+                0.5836557418241117, 0.601626975910292, 0.7030263624321398,
+                0.8075638963330773, 0.8905753347414238, 0.08551609259931425,
+                0.8741294769551397, 0.23437298648886867, 0.6598589779468564,
+                0.2993229162457226, 0.6630268780788302, 0.6330714797121424,
+                0.46736213770852897, 0.8211579657228749, 0.6547702918038226,
+                0.9735716401560498, 0.9450060341339095, 0.9190261211965479,
+                0.5588191684738684, 0.7852293901628311, 0.6576857242185324,
+                0.765023739853289, 0.988952476539161, 0.6336959721879715,
+                0.9171222957433531, 0.7095944014169592, 0.828781957426911,
+                0.4201654719806927, 0.30828931239591845, 0.06703244679082648,
+                0.7235809500546483],
+               [0.6554030330257464, 0.8807497398586577, 0.22106979166586369,
+                0.48510802361587096, 0.5082066501243259, 0.2861651244661074,
+                0.34599949490556986, 0.8916568068424006, 0.6545292311517963,
+                0.10040766727727156, 0.19820391088680872, 0.5772224463963519,
+                0.3919482197579697, 0.22517915783040648, 0.1293793103007545,
+                0.9404835704644233, 0.7791943041108744, 0.9728399752611083,
+                0.8547127511622001, 0.662231949180503, 0.3660075911028396,
+                0.5098404121233389, 0.7504113853520831, 0.6296504712643993,
+                0.8032653526837792, 0.9133127649457096, 0.8622287322718462,
+                0.4510560936547117, 0.2896260400343132, 0.775681681784534,
+                0.30518061799632284, 0.5557783678114596, 0.22238257525202695,
+                0.6739018062452143],
+               [0.7530631940863896, 0.48485026264727626, 0.9781373394574194,
+                0.2016656963844141, 0.14551680274044082, 0.2969112561033388,
+                0.1883970312043197, 0.8679858371849543, 0.5138627907503361,
+                0.37678397104463385, 0.09315695281915451, 0.4450150749391656,
+                0.20956623914318845, 0.08171019317587, 0.9891538176369883,
+                0.707322046507398, 0.2691511479233387, 0.1639132516512116,
+                0.3108661723056288, 0.9780291338806985, 0.4974772016103112,
+                0.9580447641198, 0.9971100517820857, 0.9462570654649952,
+                0.5000923257532827, 0.3261467655151658, 0.7388524191116069,
+                0.8611681471254996, 0.9898350351799993, 0.2993361070289136,
+                0.04837395007156725, 0.8764654311493766, 0.6645175020137561,
+                0.7700255320682807]],
+    "ps": [[[0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [1.9647304013303272e-06, -4.3736925242900826e-07],
+            [8.737522910318957e-06, -3.158784169881368e-06],
+            [2.0194082682924763e-05, -7.789097895956638e-06],
+            [3.6601018313290396e-05, -1.4332752949798382e-05],
+            [5.873194041412418e-05, -2.2843140691343464e-05],
+            [8.814307093802335e-05, -3.3390044867377965e-05],
+            [0.0001276854830150908, -4.60913174804431e-05]],
+           [[0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [-2.706834962913151e-06, 6.846999283972728e-08],
+            [-1.7676949557653774e-05, 3.1927146820961857e-06],
+            [-4.988223054788443e-05, 1.1456875983437106e-05],
+            [-0.00010366306425626631, 2.330800316666655e-05],
+            [-0.00018407238563534857, 3.869753111641722e-05],
+            [-0.000295989557255414, 5.81052070933641e-05],
+            [-0.0004439514205242425, 8.234858989130069e-05]],
+           [[0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [2.5531753554729985e-06, 1.3489612784697902e-06],
+            [1.8469970735531362e-05, 6.522114945289635e-06],
+            [5.529608815019996e-05, 5.3667036769319875e-05],
+            [0.0001308701347456272, 0.00013720952266997057],
+            [0.00022841773245970066, 0.00027770606380108677],
+            [0.000365234230149085, 0.00047761005643268893],
+            [0.0005307828555529215, 0.0007573985108028656]],
+           [[0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [-1.7280514370514652e-06, -4.271857651446894e-07],
+            [-7.821748314275828e-06, -4.651976498658608e-06],
+            [-1.8079706726266783e-05, -1.3497486017503842e-05],
+            [-3.255330306146429e-05, -2.7353545734786812e-05],
+            [-5.159722892457434e-05, -4.7288998585248614e-05],
+            [-7.59606968504094e-05, -7.575763883879362e-05],
+            [-0.00010699864924026093, -0.00011788009295306949]]],
+    "us": [[[0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [-0.4, 0.4],
+            [-0.4, 0.1777840543327267],
+            [-0.4, 0.17665676220571824],
+            [-0.4, 0.184732965939158],
+            [-0.4, 0.18801644303470655],
+            [-0.4, 0.19196682782001326],
+            [-0.4, 0.1956539474538519]],
+           [[0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.4, -0.28642959551502195],
+            [0.2318261485929859, -0.2853626605673505],
+            [0.22527392329604, -0.15594549897033264],
+            [0.2529330614338805, -0.1445467459240127],
+            [0.2594959254338055, -0.14636490889914575],
+            [0.2682512272913568, -0.14816164418321726],
+            [0.275246903874167, -0.1497930042777841]],
+           [[0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [-0.4, -0.4],
+            [-0.18189861969208254, -0.3985215563701534],
+            [-0.1896581624271932, -0.4],
+            [-0.20429092460140436, -0.3908985769055677],
+            [-0.20424648850788013, -0.3914245562494901],
+            [-0.2147620644888815, -0.38573736832226346],
+            [-0.21321960928671738, -0.380967394473563]],
+           [[0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.0, 0.0],
+            [0.4, 0.4],
+            [0.4, 0.37379500879085314],
+            [0.4, 0.37360316036952773],
+            [0.4, 0.3636398553942635],
+            [0.4, 0.366814380415974],
+            [0.4, 0.3710279207954732],
+            [0.4, 0.3747899422346466]]],
+    "final_p": [[0.0001276854830150908, -4.60913174804431e-05],
+                [-0.0004439514205242425, 8.234858989130069e-05],
+                [0.0005307828555529215, 0.0007573985108028656],
+                [-0.00010699864924026093, -0.00011788009295306949]],
+    "contact_lost": [False, False, False, False],
+    "steady_state_error": [0.05817632164929117, 0.044287626002264456,
+                           0.05738700689642608, 0.07055166525467646],
+    "convergence_time": [None, None, None, None],
+    "control_effort": [0.03212236093136226, 0.023426890103118977,
+                       0.032070826747902216, 0.03837540026584884],
+    "min_error": [0.05817632164929117, 0.044287626002264456,
+                  0.05738700689642608, 0.07055166525467646],
+    "converged": [False, False, False, False],
+}
+
+
+# The trainer's float32 control step took 3.7 s on an H100 at 700 W (4
+# iterations whose backtracking runs all 11 trials; PERF.md section 6), so
+# the commands run short: 2 updates of 8 envs x 8 steps, 8 test steps, and
+# 5 control periods of the contact-plant commands.
+LMPC_TRAIN_B = 8           # the lmpc command's --envs
+LMPC_TRAIN_STEPS = 4       # collect_rollout steps held to the CPU
+LMPC_TRAIN_CLI = ["--updates", "2", "--envs", "8", "--rollout_len", "8"]
+LMPC_TEST_STEPS = 8        # lmpc --test --eval_episode_steps
+LMPC_ENV_STEPS = 5         # lmpc --test --env: control periods
+LMPC_SWEEP_RUNTIME = 0.05  # sweep --controller lmpc: 5 control periods
+LMPC_SWEEP_PERIODS = 5
+# float64: the card and the CPU run the same operations in another order
+# (reductions, the Riccati kernel's FMAs); the policy's forward pass and
+# one PPO update agree far inside 1e-10 (largest difference), the LMPC
+# rollout through its stiff friction inside 1e-9. float32: the forward
+# outputs, the gradients and the parameters after the update by each
+# group's 2-norm relative difference, its largest elementwise one printed
+# beside it: Adam moves an entry whose gradient is at float32's round-off
+# by +-lr a step whichever sign the round-off takes, so a largest
+# difference against a largest entry reached 5.5e-5 on the parameters
+# after 32 steps on an H100 at 700 W. The loss, its parts and the update's
+# stats term by term, each over the larger of its own size and the value
+# loss's: the policy loss is a mean of terms that cancel (1.2e-5 of its
+# own size apart), and a 2-norm over the group would read only the
+# entropy term, which depends on log_std alone.
+PPO_F64_TOL = 1e-10
+PPO_F32_RTOL = 1e-5
+LMPC_TRAIN_TOL = 1e-9
+LMPC_EVAL_TOL = 1e-9
+# `lmpc --test --env` runs only in float32: its solves, card vs CPU, as
+# the float32 policy forward pass (PPO_F32_RTOL) and, for the controls,
+# a tenth of a milliradian of the 0.4 rad bound.
+LMPC_ENV_K_RTOL = 1e-5
+LMPC_ENV_U_TOL = 1e-4
+TUNERS = Path(__file__).resolve().parent / "artifacts" / "lmpc"
+
+
+def _max_diff(got, want, rel: bool) -> float:
+    """Largest |got - want| over a tensor, or over its largest |want| with
+    `rel`."""
+    d = float((got.detach().cpu().double() - want.detach().double())
+              .abs().max())
+    return d / max(float(want.detach().abs().max()), 1e-30) if rel else d
+
+
+def _norm_rel(got: list, want: list) -> float:
+    """||got - want||_2 / ||want||_2 over a group of tensors."""
+    g = torch.cat([x.detach().cpu().double().reshape(-1) for x in got])
+    w = torch.cat([x.detach().double().reshape(-1) for x in want])
+    return float(torch.linalg.vector_norm(g - w)
+                 / max(float(torch.linalg.vector_norm(w)), 1e-30))
+
+
+def _terms_rel(got, want, scale: int) -> list[float]:
+    """Each scalar term's |got - want| over the larger of its own |want|
+    and term `scale`'s."""
+    got, want = ([float(x.detach()) for x in v] for v in (got, want))
+    return [abs(g - w) / max(abs(w), abs(want[scale]), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def _ppo_case(dtype: torch.dtype, dev: torch.device):
+    """The converted `general` tuner on `dev` in `dtype` (float64: every
+    parameter cast, as JAX's sweep casts them) with its Adam state, and a
+    batch of 512 observations near the tuner's own (seeded numpy)."""
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.adapt import ppo as ppo_mod
+    from dart_tpu_torch.io import checkpoint as ckpt
+
+    saved = ckpt.load_agent(str(TUNERS / "general"))
+    model = ppo_mod.ActorCritic(trainer.N_PARAMS, trainer.OBS_DIM)
+    model.load_state_dict(saved["model"])
+    if dtype == torch.float64:
+        model = model.to(torch.float64)
+    rng = np.random.default_rng(11)
+    T = 512
+    obs = torch.from_numpy(rng.normal(size=(T, trainer.OBS_DIM))).to(dtype)
+    with torch.no_grad():
+        mean, std, _ = model(obs)
+    acts = mean + std * torch.from_numpy(
+        rng.normal(size=(T, trainer.N_PARAMS))).to(dtype)
+    logps = ppo_mod.normal_logp(acts, mean, std) \
+        + torch.from_numpy(rng.normal(size=T) * 0.05).to(dtype)
+    batch = ppo_mod.Batch(obs, acts, logps,
+                          *(torch.from_numpy(rng.normal(size=T)).to(dtype)
+                            for _ in range(2)))
+    model = model.to(dev)
+    opt = ppo_mod.make_optimizer(model, ppo_mod.PPOConfig())
+    opt.load_state_dict(saved["optimizer"])
+    return model, opt, ppo_mod.Batch(*(x.to(dev) for x in batch))
+
+
+def phase_ppo(dev: torch.device, card: str) -> dict:
+    """The converted `general` tuner's forward pass, `ppo_loss` and its
+    gradient, and one `ppo_update` (equal permutations) on the card
+    against the same calls on CPU tensors, float64 (1e-10, the largest
+    difference) and float32 (1e-5: the forward outputs, gradients and
+    parameters by each group's 2-norm relative difference, the loss terms
+    and the update's stats each on its own, see PPO_F32_RTOL)."""
+    from dart_tpu_torch.adapt import ppo as ppo_mod
+
+    cfg = ppo_mod.PPOConfig(epochs=4, minibatch_size=64)
+    perms = ppo_mod.draw_perms(torch.Generator().manual_seed(12),
+                               cfg.epochs, 512)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        rel = dtype == torch.float32
+        gate = PPO_F32_RTOL if rel else PPO_F64_TOL
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            model, opt, batch = _ppo_case(dtype, d)
+            with torch.no_grad():
+                fwd = model(batch.obs)
+            model.zero_grad()
+            loss, aux = ppo_mod.ppo_loss(model, batch, cfg)
+            loss.backward()
+            grads = [p.grad.clone() for p in model.parameters()]
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = ppo_mod.ppo_update(model, opt, batch, cfg, perms)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs.append((fwd, (loss, *aux), grads,
+                         [p.detach() for p in model.parameters()], stats, ms))
+        (fc, lc, gc, pc, sc, ms), (fp, lp, gp, pp, sp, _) = runs
+        groups = {"forward": (fc, fp), "loss": (lc, lp), "grad": (gc, gp),
+                  "params": (pc, pp), "stats": (sc, sp)}
+        largest = {k: max(_max_diff(a, b, rel) for a, b in zip(*v))
+                   for k, v in groups.items()}
+        name = str(dtype)[6:]
+        if rel:
+            # The value loss is term 2 of (loss, policy, value, entropy)
+            # and term 1 of the stats (policy, value, entropy).
+            terms = {"loss": _terms_rel(lc, lp, 2),
+                     "stats": _terms_rel(sc, sp, 1)}
+            worst = {k: _norm_rel(*groups[k])
+                     for k in ("forward", "grad", "params")}
+            worst.update({k: max(v) for k, v in terms.items()})
+            how = ("2-norm relative difference forward, grad, params; "
+                   "each term over max(|term|, |value loss|) "
+                   + ", ".join(f"{k} [" + ", ".join(f"{x:.3e}" for x in v)
+                               + "]" for k, v in terms.items())
+                   + "; worst ")
+        else:
+            worst = largest
+            how = "largest difference "
+        print(f"[ppo] {name}: card vs CPU, {how}"
+              + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+              + f" (gate {gate:.0e})" + (
+                  "; largest against the largest entry " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in largest.items()) if rel
+                  else "")
+              + f"; one ppo_update (512 samples, 4 epochs x 8 minibatches) "
+              f"{ms:.1f} ms on the card [{card}]")
+        if not max(worst.values()) <= gate:
+            raise AssertionError(f"ppo {name}: the card differs from the "
+                                 f"CPU: {worst}")
+        out[name] = {"worst": worst, "update_ms": ms}
+    return out
+
+
+def _lmpc_train_setup(dev: torch.device, gen: torch.Generator):
+    """The lmpc command's trainer at its settings (B=8, N=12, dt=0.01,
+    four iterations, the 520-wide policy from seed 0) in float64 on
+    `dev`, its start and LMPC_TRAIN_STEPS steps of draws from `gen` (a
+    CPU generator)."""
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.adapt import ppo as ppo_mod
+    from dart_tpu_torch.control import mpc as mpc_mod
+
+    f64 = torch.float64
+    ctlr = mpc_mod.LMPC(N=LMPC_N, dt=LMPC_DT,
+                        cfg=mpc_mod.ilqr.ILQRConfig(max_iters=4))
+    cfg = trainer.EnvConfig(dt=LMPC_DT, max_episode_steps=1024)
+    ts = trainer.init_train_state(torch.Generator().manual_seed(0),
+                                  ppo_mod.PPOConfig(epochs=4,
+                                                    minibatch_size=64), dev)
+    init = trainer.draw_init(gen, LMPC_TRAIN_B, cfg, f64, dev)
+    draws = [trainer.draw_step(gen, LMPC_TRAIN_B, f64, dev)
+             for _ in range(LMPC_TRAIN_STEPS)]
+    s0 = trainer.env_init(ctlr, cfg, LMPC_TRAIN_B, f64, dev, draws=init)
+    return ts.model, ctlr, cfg, s0, draws
+
+
+def _leaves(tree, prefix=""):
+    for name, x in zip(tree._fields, tree):
+        if isinstance(x, tuple):
+            yield from _leaves(x, f"{prefix}{name}.")
+        elif isinstance(x, torch.Tensor):
+            yield prefix + name, x
+
+
+def riccati_at(ocp, params, aux, z0, V0, card: str, label: str) -> dict:
+    """`riccati_backward` per call (CUDA events, median of 50) at this
+    OCP's linearisation about V0, and its bound from `work()`."""
+    from dart_tpu_torch.ops.kernels import riccati as kric
+    from dart_tpu_torch.solver import ilqr
+
+    B, N_, _ = V0.shape
+    Z = ilqr._rollout(ocp, params, z0, V0)
+    n_con = max(ocp.n_con, 1)
+    lam = torch.zeros((B, N_, n_con), dtype=z0.dtype, device=z0.device)
+    mu = torch.ones((B,), dtype=z0.dtype, device=z0.device)
+    derivs = ilqr._linearize(ocp, params, aux, Z, V0, lam, mu)
+    reg = torch.full((B,), 1e-6, dtype=z0.dtype, device=z0.device)
+    args = [ilqr._batch_last(d) for d in derivs]
+    vb = ilqr._batch_last(V0)
+
+    def call():
+        kric.riccati_backward(*args, vb, ocp.u_lo, ocp.u_hi, reg)
+
+    call()
+    torch.cuda.synchronize()
+    ms = median_ms(call, 50)
+    nz = z0.shape[1]
+    b_ms, b_by = bound(*kric.work(N_, nz, B, z0.element_size()))
+    print(f"[{label}] riccati_backward N={N_} nz={nz} B={B} "
+          f"{str(z0.dtype)[6:]}: {ms:.4f} ms per call (CUDA events, "
+          f"median); bound {b_ms:.6f} ms by {b_by} [{card}]")
+    return {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_lmpc_train(dev: torch.device, card: str) -> dict:
+    """The LMPC trainer on the card: (a) float64 `collect_rollout` at the
+    command's settings against the same call on CPU tensors with the same
+    CPU-drawn inputs (1e-9 on actions, rewards, values and every state
+    leaf), every backward pass a Riccati launch and none the plain
+    version; the kernel at this path's shape, float32; (b) `lmpc --train`
+    for two updates of 8 envs x 8 steps: finite losses, moved
+    parameters, best and latest written and reloaded equal; (c) `lmpc
+    --test` on what it wrote."""
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.adapt import ppo as ppo_mod
+    from dart_tpu_torch.control import mpc as mpc_mod
+    from dart_tpu_torch.io import checkpoint as ckpt
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.solver import ilqr
+    from dart_tpu_torch.utils.tree import tree_to
+
+    out = {}
+    with plain_riccati_on_card() as plain:
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            model, ctlr, cfg, s0, draws = _lmpc_train_setup(
+                d, torch.Generator().manual_seed(13))
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            riccati_backward.launches, ilqr.host_bool.count = 0, 0
+            t0 = time.perf_counter()
+            res = trainer.collect_rollout(model, ctlr, s0, cfg,
+                                          LMPC_TRAIN_STEPS, draws)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            runs.append((res, time.perf_counter() - t0,
+                         riccati_backward.launches, ilqr.host_bool.count))
+        ((sc, trc, lvc), secs, ric, reads), ((sp, trp, lvp), cpu_s, _, _) = \
+            runs
+        worst = {name: _max_diff(a, b, False) for (name, a), (_, b) in zip(
+            [*_leaves(trc, "traj."), *_leaves(sc, "state."),
+             ("last_value", lvc)],
+            [*_leaves(trp, "traj."), *_leaves(sp, "state."),
+             ("last_value", lvp)])}
+        top = max(worst, key=worst.get)
+        per = secs / LMPC_TRAIN_STEPS
+        print(f"[lmpc-train] collect_rollout B={LMPC_TRAIN_B} N={LMPC_N} "
+              f"float64, {LMPC_TRAIN_STEPS} steps: card vs CPU largest "
+              f"difference {worst[top]:.3e} ({top}; actions "
+              f"{worst['traj.action']:.3e}, rewards {worst['traj.reward']:.3e}"
+              f", values {worst['traj.value']:.3e}; gate "
+              f"{LMPC_TRAIN_TOL:.0e}); {per * 1e3:.1f} ms a control step on "
+              f"the card (CPU {cpu_s / LMPC_TRAIN_STEPS * 1e3:.1f}), {ric} "
+              f"Riccati launches, {reads} host reads [{card}]")
+        if not worst[top] <= LMPC_TRAIN_TOL:
+            raise AssertionError(f"lmpc-train: the card's rollout differs "
+                                 f"from the CPU's: {top} {worst[top]}")
+        if ric == 0:
+            raise AssertionError("lmpc-train: no Riccati launch")
+        out["collect"] = {"worst": worst[top], "ctrl_s_f64": per,
+                          "launches": ric, "reads": reads}
+        # The kernel at the trainer's shape, float32, about the state the
+        # rollout reached.
+        s32 = tree_to(sc, dev, torch.float32)
+        aux, z0 = ctlr._problem(s32.ctrl_carry, s32.x, s32.target,
+                                mpc_mod.LMPC_DEFAULT_WEIGHTS)
+        out["riccati"] = riccati_at(ctlr.ocp, s32.current_k, aux, z0,
+                                    s32.ctrl_carry.V, card, "lmpc-train")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            rc, text, ric, reads, wall = run_cli_text(
+                ["lmpc", "--train", *LMPC_TRAIN_CLI, "--checkpoint_dir",
+                 tmp])
+            lines = [json.loads(x) for x in text.splitlines()]
+            ups, done = lines[:-1], lines[-1]
+            step_s = done["timing"]["mean_ms"] / 1e3
+            n_upd = int(LMPC_TRAIN_CLI[1])
+            T = int(LMPC_TRAIN_CLI[5])
+            print(f"[lmpc-train] lmpc --train {' '.join(LMPC_TRAIN_CLI)}: "
+                  f"rc {rc}, updates {ups}; {step_s:.2f} s a train step "
+                  f"(p50 {done['timing']['p50_ms'] / 1e3:.2f}), "
+                  f"{step_s / T * 1e3:.1f} ms a control step with the PPO "
+                  f"update spread over it, {ric / n_upd:.0f} Riccati "
+                  f"launches and {reads / n_upd:.0f} host reads a train "
+                  f"step (at most 4 x {T} launches), {wall:.1f} s wall "
+                  f"[{card}]")
+            losses = [u[k] for u in ups for k in ("policy_loss",
+                                                  "value_loss")]
+            if rc != 0 or len(ups) != n_upd or not all(
+                    np.isfinite(x) for x in losses + [done["reward_last"]]):
+                raise AssertionError(f"lmpc --train: rc {rc}, {lines}")
+            if not 0 < ric <= 4 * T * n_upd:
+                raise AssertionError(f"lmpc --train: {ric} Riccati launches")
+            fresh = trainer.init_train_state(torch.Generator().manual_seed(0),
+                                             ppo_mod.PPOConfig(), "cpu").model
+            best = ckpt.load_agent(tmp, "best_agent")
+            latest = ckpt.load_agent(tmp, "latest_agent")
+            moved = sum(float((latest["model"][k] - v).abs().sum())
+                        for k, v in fresh.state_dict().items())
+            fresh.load_state_dict(latest["model"])
+            opt = ppo_mod.make_optimizer(fresh, ppo_mod.PPOConfig())
+            opt.load_state_dict(latest["optimizer"])
+            again = all(torch.equal(fresh.state_dict()[k], v)
+                        for k, v in latest["model"].items())
+            steps = {int(s["step"]) for s in
+                     opt.state_dict()["state"].values()}
+            print(f"[lmpc-train] best_agent.pt episode {best['episode']} "
+                  f"return {best['return']:.3f}, latest_agent.pt episode "
+                  f"{latest['episode']}; parameters moved by "
+                  f"{moved:.3e} in sum; reloaded equal {again}, Adam steps "
+                  f"{steps}")
+            best_ret = max(u["mean_reward"] for u in ups)   # 3 decimals
+            if not (moved > 0 and again and latest["episode"] == n_upd - 1
+                    and abs(best["return"] - best_ret) <= 5e-4):
+                raise AssertionError("lmpc --train: the parameters did not "
+                                     "move, or the checkpoints are wrong")
+            out["train"] = {"step_s": step_s, "launches": ric / n_upd,
+                            "reads": reads / n_upd, "wall": wall}
+
+            rc, text, ric, reads, wall = run_cli_text(
+                ["lmpc", "--test", "--checkpoint_dir", tmp, "--envs", "8",
+                 "--eval_episode_steps", str(LMPC_TEST_STEPS)])
+            res = json.loads(text.splitlines()[-1])
+            print(f"[lmpc-train] lmpc --test (general, 8 envs, "
+                  f"{LMPC_TEST_STEPS} control steps): rc {rc}, {res}; "
+                  f"{wall / LMPC_TEST_STEPS * 1e3:.1f} ms a control step, "
+                  f"{ric} Riccati launches, {reads} host reads [{card}]")
+            if rc != 0 or not all(np.isfinite(v) for v in res.values()):
+                raise AssertionError(f"lmpc --test: rc {rc}, {res}")
+            out["test"] = {"ctrl_s": wall / LMPC_TEST_STEPS, "launches": ric}
+    print(f"[lmpc-train] plain Riccati calls on the card {plain[0]} "
+          "(gate 0)")
+    if plain[0] != 0:
+        raise AssertionError("riccati_backward_reference ran on the card")
+    return out
+
+
+@contextlib.contextmanager
+def lmpc_solve_watch():
+    """Record each `LMPC.solve` call's parameter vectors (B, 34) and
+    controls (B, 2), as float64 CPU tensors, while the block runs."""
+    from dart_tpu_torch.control import mpc as mpc_mod
+
+    fn = mpc_mod.LMPC.solve
+    log = []
+
+    def solve(self, carry, state, target, pvec, *a, **k):
+        out = fn(self, carry, state, target, pvec, *a, **k)
+        log.append((pvec.detach().cpu().double(),
+                    out[1].detach().cpu().double()))
+        return out
+
+    mpc_mod.LMPC.solve = solve
+    try:
+        yield log
+    finally:
+        mpc_mod.LMPC.solve = fn
+
+
+def _solves_diff(got: list, want: list) -> tuple[float, float]:
+    """(largest |dk| over max(|k|, 1), largest |du|) over two runs' solve
+    logs, solve by solve; inf when their lengths differ."""
+    if len(got) != len(want):
+        return float("inf"), float("inf")
+    d_k = max(float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+              for (a, _), (b, _) in zip(got, want))
+    d_u = max(float((a - b).abs().max()) for (_, a), (_, b) in zip(got, want))
+    return d_k, d_u
+
+
+def phase_lmpc_eval(dev: torch.device, card: str) -> dict:
+    """The trained-policy LMPC evaluator on the card in float64 with the
+    converted lagplant_r5 tuner on the four rows, JAX's init_k, held to
+    JAX's own run (JAX_LMPC_EVAL: positions and controls at every control
+    period, final positions, contact loss, metrics) within 1e-9; then
+    `lmpc --test --env cube_1x0_0x1` with that tuner and `sweep
+    --controller lmpc` at short runtimes, inside their warm-up: each
+    solve's parameter vectors and controls held between the card and the
+    same command on `--cpu` (float32 for the first, float64 for the
+    sweep), and the policy seen to move the vector."""
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.adapt import ppo as ppo_mod
+    from dart_tpu_torch.io import checkpoint as ckpt
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.rollout import evaluate
+
+    f64 = torch.float64
+    model = ppo_mod.ActorCritic(trainer.N_PARAMS, trainer.OBS_DIM)
+    model.load_state_dict(ckpt.load_agent(str(TUNERS / "lagplant_r5"))[
+        "model"])
+    model = model.to(dev)
+    ref = JAX_LMPC_EVAL
+
+    def t(x):
+        return torch.tensor(x, dtype=f64, device=dev)
+
+    four = [t([[0.0, 0.0], [2.0, 0.0], [2.5, 2.5], [0.0, 0.0]]),
+            t([1.0, 2.0, 1.0, 2.0]), t([0.1, 0.05, 0.2, 0.1]),
+            t([[0.05, -0.03], [-0.04, 0.02], [0.03, 0.05], [-0.05, -0.05]])]
+    with plain_riccati_on_card() as plain:
+        riccati_backward.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, (ps, us) = evaluate.make_lmpc_evaluator(model, **LMPC_EVAL)(
+            *four, t(ref["init_k"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ric = riccati_backward.launches
+    m = res.metrics
+    n_ctrl = LMPC_EVAL["n_steps"] // LMPC_EVAL["control_every"]
+    inf = float("inf")
+    def jx(k):
+        return torch.tensor(ref[k], dtype=f64)
+
+    diffs = {
+        "ps": _max_diff(ps, jx("ps"), False),
+        "us": _max_diff(us, jx("us"), False),
+        "final_p": _max_diff(res.final_p, jx("final_p"), False),
+        **{k: _max_diff(getattr(m, k), jx(k), False)
+           for k in ("steady_state_error", "control_effort", "min_error")}}
+    conv_t = [inf if x is None else x for x in ref["convergence_time"]]
+    same_flags = (m.converged.tolist() == ref["converged"]
+                  and res.contact_lost.tolist() == ref["contact_lost"]
+                  and m.convergence_time.tolist() == conv_t)
+    top = max(diffs, key=diffs.get)
+    print(f"[lmpc-eval] make_lmpc_evaluator float64, lagplant_r5, 4 rows x "
+          f"{n_ctrl} control periods (N={LMPC_EVAL['N']}, "
+          f"{LMPC_EVAL['max_iters']} iterations): {secs:.2f} s, "
+          f"{secs / n_ctrl * 1e3:.1f} ms a control period, {ric} Riccati "
+          f"launches; against JAX largest difference {diffs[top]:.3e} "
+          f"({top}; gate {LMPC_EVAL_TOL:.0e}), flags and convergence times "
+          f"equal {same_flags}; final p {res.final_p.tolist()} [{card}]")
+    if not (diffs[top] <= LMPC_EVAL_TOL and same_flags):
+        raise AssertionError(f"lmpc-eval: the card differs from JAX: "
+                             f"{diffs}, flags equal {same_flags}")
+    if ric == 0 or plain[0] != 0:
+        raise AssertionError(f"lmpc-eval: {ric} Riccati launches, "
+                             f"{plain[0]} plain calls on the card")
+    out = {"ctrl_s": secs / n_ctrl, "launches": ric, "worst": diffs[top]}
+
+    # The commands. Their init_k comes from the port's generator, so their
+    # rows are not JAX's; at these lengths every period lies in the 250-step
+    # warm-up, where no control reaches the plant and the printed metrics
+    # read only the starting offset. So the gates read the solves: every
+    # `LMPC.solve` call's parameter vector (the policy's output) and
+    # controls, the card's against the same command's on `--cpu`.
+    env_argv = ["lmpc", "--test", "--env", "cube_1x0_0x1",
+                "--checkpoint_dir", str(TUNERS / "lagplant_r5"),
+                "--eval_episode_steps", str(LMPC_ENV_STEPS)]
+    runs = []
+    for extra in ([], ["--cpu"]):
+        with lmpc_solve_watch() as log:
+            rc, text, ric, reads, wall = run_cli_text(env_argv + extra)
+        runs.append((rc, json.loads(text.splitlines()[-1]), log, ric, reads,
+                     wall))
+    (rc, r, log, ric, reads, wall), (rc_c, r_c, log_c, _, _, _) = runs
+    init_k = trainer.sample_init_k(torch.Generator().manual_seed(3), 1,
+                                   ppo_mod.ParamActionConfig()).double()
+    d_k, d_u = _solves_diff(log, log_c)
+    acted = float((log[0][0] - init_k).abs().max())
+    u_max = max(float(u.abs().max()) for _, u in log)
+    print(f"[lmpc-eval] lmpc --test --env cube_1x0_0x1 ({LMPC_ENV_STEPS} "
+          f"control periods, all in the 250-step warm-up: the metrics read "
+          f"the starting offset): rc {rc}, {r}; {wall / LMPC_ENV_STEPS * 1e3:.1f}"
+          f" ms a control period, {ric} Riccati launches, {reads} host "
+          f"reads [{card}]")
+    print(f"[lmpc-eval]   its {len(log)} solves float32, card vs --cpu "
+          f"({len(log_c)} solves, rc {rc_c}): parameter vectors "
+          f"{d_k:.3e} (largest difference over max(|k|, 1); gate "
+          f"{LMPC_ENV_K_RTOL:.0e}), controls {d_u:.3e} rad (gate "
+          f"{LMPC_ENV_U_TOL:.0e}); the policy moved the start vector by "
+          f"{acted:.3e} at the first solve, largest |u| {u_max:.4f} rad")
+    if rc != 0 or rc_c != 0 or r != r_c or not np.isfinite(
+            r["steady_state_error_mm"]):
+        raise AssertionError(f"lmpc --test --env: rc {rc}/{rc_c}, {r}, "
+                             f"{r_c}")
+    if not (len(log) == len(log_c) == LMPC_ENV_STEPS
+            and d_k <= LMPC_ENV_K_RTOL and d_u <= LMPC_ENV_U_TOL
+            and acted > 0 and u_max > 0):
+        raise AssertionError(f"lmpc --test --env: solves card vs CPU "
+                             f"{d_k}, {d_u}; policy moved {acted}, |u| "
+                             f"{u_max}")
+    out["env"] = {"ctrl_s": wall / LMPC_ENV_STEPS, "d_k": d_k, "d_u": d_u}
+
+    sweep_argv = ["sweep", "--controller", "lmpc", "--runtime",
+                  str(LMPC_SWEEP_RUNTIME)]
+    with lmpc_solve_watch() as log:
+        rc, text, ric, reads, wall = run_cli_text(sweep_argv)
+    rows = json.loads(text)["scenarios"]
+    u_max = max(float(u.abs().max()) for _, u in log)
+    finite = all(bool(torch.isfinite(k).all() and torch.isfinite(u).all())
+                 for k, u in log)
+    print(f"[lmpc-eval] sweep --controller lmpc --runtime "
+          f"{LMPC_SWEEP_RUNTIME} (the general tuner, 18 rows as lanes, "
+          f"float32, inside the warm-up): rc {rc}, {wall:.1f} s wall, "
+          f"{ric} Riccati launches, {reads} host reads, {len(log)} solves, "
+          f"finite {finite}, largest |u| {u_max:.4f} rad; each row's init_k "
+          f"from the port's generator seeded with JAX's per-row formula, "
+          f"so the rows are not JAX's [{card}]")
+    for row in rows:
+        print(f"[lmpc-eval]   {row['object']:8s} m={row['mass']:.0f} "
+              f"mu={row['mu']:.2f}: sse {row['sse_mm']} mm, effort "
+              f"{row['effort']}")
+    if rc != 0 or len(rows) != 18 or not all(
+            np.isfinite(x["sse_mm"]) for x in rows) or not (
+            finite and u_max > 0 and len(log) == LMPC_SWEEP_PERIODS):
+        raise AssertionError(f"sweep --controller lmpc: rc {rc}, {len(log)} "
+                             f"solves, finite {finite}, |u| {u_max}")
+    out["sweep_s"] = wall
+    # The same command in float64, card against --cpu: every solve's
+    # parameter vectors and controls, and the rows.
+    runs = []
+    for extra in (["--f64"], ["--f64", "--cpu"]):
+        with lmpc_solve_watch() as log:
+            rc, text, _, _, wall = run_cli_text(sweep_argv + extra)
+        runs.append((rc, json.loads(text)["scenarios"], log, wall))
+    (rc, rows, log, wall), (rc_c, rows_c, log_c, wall_c) = runs
+    d_k, d_u = _solves_diff(log, log_c)
+    print(f"[lmpc-eval] sweep --controller lmpc --f64: card {wall:.1f} s, "
+          f"--cpu {wall_c:.1f} s (rc {rc}/{rc_c}); {len(log)} solves, card "
+          f"vs --cpu parameter vectors {d_k:.3e}, controls {d_u:.3e} rad "
+          f"(gate {LMPC_EVAL_TOL:.0e}), rows equal {rows == rows_c}")
+    if not (rc == rc_c == 0 and rows == rows_c and len(log) == len(log_c)
+            == LMPC_SWEEP_PERIODS and max(d_k, d_u) <= LMPC_EVAL_TOL):
+        raise AssertionError(f"sweep --controller lmpc --f64: card vs CPU "
+                             f"{d_k}, {d_u}, rows equal {rows == rows_c}")
+    out["sweep_f64"] = {"d_k": d_k, "d_u": d_u}
+    return out
+
+
 PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
           "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "pmpc-eval",
           "rmpc-eval", "sweep", "solve", "pmpc-cli", "rmpc-cli",
-          "sweep-instance", "times")
+          "sweep-instance", "ppo", "lmpc-train", "lmpc-eval", "times")
 # Run only when named: the device-time breakdown behind PERF.md section 5,
 # and the Riccati and PMPC kernels' device time against horizon, budget and
 # batch.
@@ -2575,6 +3319,12 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
         res[ph] = phase_cli(ph[:4], card)
     elif ph == "sweep-instance":
         res["sweep_instance"] = phase_sweep_instance(card)
+    elif ph == "ppo":
+        res["ppo"] = phase_ppo(dev, card)
+    elif ph == "lmpc-train":
+        res["lmpc_train"] = phase_lmpc_train(dev, card)
+    elif ph == "lmpc-eval":
+        res["lmpc_eval"] = phase_lmpc_eval(dev, card)
     elif ph == "times":
         res["pmpc_times"] = phase_times(dev, card)
         res["times"] = phase_kernel_times(dev, card)

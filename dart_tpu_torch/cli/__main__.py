@@ -1,6 +1,6 @@
 """Dispatcher of the port's commands (port of `dart_tpu.cli.__main__`).
 
-    python -m dart_tpu_torch.cli {pmpc|rmpc|sweep|demo} [args...]
+    python -m dart_tpu_torch.cli {pmpc|rmpc|lmpc|sweep|demo} [args...]
 
 `demo` runs the three canned experiments of the reference launcher
 (`launch.sh:34-52`): cube precise, cylinder fast, sphere gentle. The other
@@ -11,7 +11,6 @@ that ports them.
 import sys
 
 _NOT_PORTED = {
-    "lmpc": "ROADMAP Queue 1 item 4 (PPO and LMPC training)",
     "bench": "ROADMAP Queue 1 item 1 (the port's bench)",
     "preview": "ROADMAP Queue 1 item 6 (with the object presets)",
     "watch": "ROADMAP Queue 1 item 6 (with the telemetry ring)",
@@ -29,6 +28,9 @@ def main(argv=None):
         return m(rest)
     if cmd == "rmpc":
         from dart_tpu_torch.cli.rmpc import main as m
+        return m(rest)
+    if cmd == "lmpc":
+        from dart_tpu_torch.cli.lmpc import main as m
         return m(rest)
     if cmd == "sweep":
         from dart_tpu_torch.cli.sweep import main as m

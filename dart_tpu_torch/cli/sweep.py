@@ -5,12 +5,15 @@ variant).
     python -m dart_tpu_torch.cli.sweep --targets 0.05,-0.04 0.08,0.06 \
         --runtime 5
     python -m dart_tpu_torch.cli.sweep --controller rmpc --batch_major
+    python -m dart_tpu_torch.cli.sweep --controller lmpc \
+        --checkpoint_dir artifacts/lmpc/lagplant_r5
 
 Without `--batch_major` every row is a lane of the per-scenario evaluator
-(`--controller pmpc|rmpc`); with it (`rmpc` only) the grid, padded to 128
-lanes, goes through one RMPCBatch solve per control step. Runs on the
-card; `--cpu` runs the same on the CPU, where each kernel's plain PyTorch
-version stands in for it.
+(`--controller pmpc|rmpc|lmpc`; `lmpc` with the trained policy in
+`--checkpoint_dir/best_agent.pt` tuning its 34 parameters); with it
+(`rmpc` only) the grid, padded to 128 lanes, goes through one RMPCBatch
+solve per control step. Runs on the card; `--cpu` runs the same on the
+CPU, where each kernel's plain PyTorch version stands in for it.
 """
 
 import argparse
@@ -18,7 +21,6 @@ import json
 
 # Controllers not ported yet, and the ROADMAP Queue 1 item that ports each.
 _NOT_PORTED = {
-    "lmpc": "the LMPC evaluator and its PPO policy (ROADMAP Queue 1 item 4)",
     "mppi": "the MPPI evaluator (ROADMAP Queue 1 item 6)",
 }
 
@@ -33,6 +35,8 @@ def main(argv=None):
     p.add_argument("--tolerance", type=float, default=0.01)
     p.add_argument("--controller", default="pmpc",
                    choices=["pmpc", "rmpc", "mppi", "lmpc"])
+    p.add_argument("--checkpoint_dir", default="artifacts/lmpc/general",
+                   help="lmpc only: trained policy to tune the 34 params")
     p.add_argument("--batch_major", action="store_true",
                    help="rmpc only: run the whole grid through one "
                         "RMPCBatch solve per control step (the whole-solve "
@@ -78,6 +82,36 @@ def main(argv=None):
     if args.batch_major:
         ev = evaluate.make_rmpc_batch_evaluator(**kw)
         res, agg = sweep_mod.run_sweep_batched(ev, batch)
+    elif args.controller == "lmpc":
+        # Trained-policy LMPC on the contact plant (`run.py:243-311`).
+        from dart_tpu_torch.adapt import lmpc_trainer as trainer
+        from dart_tpu_torch.adapt import ppo as ppo_mod
+        from dart_tpu_torch.io import checkpoint as ckpt
+
+        restored = ckpt.load_agent(args.checkpoint_dir, "best_agent")
+        if restored is None:
+            p.error(f"no checkpoint in {args.checkpoint_dir}; train with "
+                    "`python -m dart_tpu_torch.cli lmpc --train` first")
+        model = ppo_mod.ActorCritic(act_dim=trainer.N_PARAMS,
+                                    obs_dim=trainer.OBS_DIM)
+        model.load_state_dict(restored["model"])
+        # Every parameter in the sweep's type, as JAX casts them.
+        model = model.to(dev, dtype)
+        ev0 = evaluate.make_lmpc_evaluator(model, **kw)
+        act_cfg = ppo_mod.ParamActionConfig()
+
+        def ev(k, m, mu, t):
+            # A deterministic per-scenario seed for the parameter-vector
+            # init, JAX's formula; the draw is the port's generator's.
+            rows = zip(t.cpu().tolist(), mu.cpu().tolist(), m.cpu().tolist())
+            init_k = torch.cat([trainer.sample_init_k(
+                torch.Generator().manual_seed(
+                    round(tx * 1e4) * 7919 + round(ty * 1e4) * 104729
+                    + round(mu_i * 1e3) * 31 + round(m_i * 10)),
+                1, act_cfg, dtype) for (tx, ty), mu_i, m_i in rows])
+            return ev0(k, m, mu, t, init_k.to(dev))
+
+        res, agg = sweep_mod.run_sweep(ev, batch)
     else:
         maker = {"pmpc": evaluate.make_pmpc_evaluator,
                  "rmpc": evaluate.make_rmpc_evaluator}[args.controller]

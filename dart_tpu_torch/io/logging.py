@@ -1,13 +1,15 @@
-"""JSON output helpers and the RMPC episode log (the parts of
-`dart_tpu.io.logging` the commands use): `to_jsonable` and the RMPC JSON
+"""JSON output helpers and the episode logs (the parts of
+`dart_tpu.io.logging` the commands use): `to_jsonable`, the RMPC JSON
 episode format with NaN -> null and its descriptive file names
-(`RMPC/dev_dual/rob_ctrl.py:52-86, 222-226`)."""
+(`RMPC/dev_dual/rob_ctrl.py:52-86, 222-226`), and the LMPC episodic
+`.npy` store (`EpisodicNpy`, `analyitics.py:46-77`)."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import List
+import time
+from typing import Any, Dict, List
 
 import numpy as np
 
@@ -48,3 +50,32 @@ def save_episodes_json(path: str, episodes: List[dict]):
 def load_episodes_json(path: str) -> List[dict]:
     with open(path) as f:
         return json.load(f)
+
+
+class EpisodicNpy:
+    """LMPC-style episodic logger: one pickle .npy holding a dict
+    {timestamp: {metric: array}} that grows across save() calls
+    (`analyitics.py:46-77`)."""
+
+    def __init__(self, fpath: str):
+        self.fpath = fpath
+        self.buffer: Dict[str, List[Any]] = {}
+
+    def log(self, metric: str, value):
+        self.buffer.setdefault(metric, []).append(np.asarray(value))
+
+    def save(self):
+        os.makedirs(os.path.dirname(self.fpath) or ".", exist_ok=True)
+        store = {}
+        if os.path.exists(self.fpath):
+            store = np.load(self.fpath, allow_pickle=True).item()
+        snap = {k: np.stack(v) if len(v) and np.ndim(v[0]) else np.asarray(v)
+                for k, v in self.buffer.items()}
+        store[str(time.time())] = snap
+        np.save(self.fpath, store, allow_pickle=True)
+        self.buffer = {}
+
+    def load(self, metric: str):
+        """Per-episode arrays for one metric id (`analyitics.py:62-77`)."""
+        store = np.load(self.fpath, allow_pickle=True).item()
+        return [ep[metric] for ep in store.values() if metric in ep]

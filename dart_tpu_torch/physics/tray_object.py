@@ -173,6 +173,64 @@ def topple_on_from_kappa(kappa_inv: torch.Tensor) -> torch.Tensor:
     return (kappa_inv == 0).to(kappa_inv.dtype)
 
 
+def shape_from_kappa(kappa_inv: torch.Tensor) -> torch.Tensor:
+    """Shape from the kappa signature: cube (0,0), cylinder (k,0), sphere
+    (k,k)."""
+    return torch.where(kappa_inv[..., 1] > 0, 2,
+                       torch.where(kappa_inv[..., 0] > 0, 1, 0))
+
+
+def scenario_params(shape_kappa_inv: torch.Tensor, mass: torch.Tensor,
+                    mu: torch.Tensor, dtype, tray_lag=None):
+    """Scenario rows -> TrayObjectParams with (B,) and (B, 2) leaves.
+    `tray_lag` is an optional (omega_n, zeta[, fast_frac]) tuple of
+    scalars or per-axis pairs. Default (None): the mass-interpolated
+    `calibrated_lag(mass)` plus the fitted per-shape dissipation and
+    backlash; `LEGACY_TRAY_LAG` reproduces the r1/r2 artifacts
+    (optimistic lag, no dissipation)."""
+    B, dev = mass.shape[0], mass.device
+
+    def axes(x):
+        return torch.broadcast_to(
+            torch.as_tensor(x, dtype=dtype, device=dev), (B, 2))
+
+    def lanes(v):
+        return torch.full((B,), v, dtype=dtype, device=dev)
+
+    calibrated = tray_lag is None
+    lag = calibrated_lag(mass, dtype) if calibrated else tray_lag
+    omega_n, zeta = lag[0], lag[1]
+    lag_fast = lag[2] if len(lag) > 2 else 0.0
+    if calibrated:
+        shape_id = shape_from_kappa(shape_kappa_inv).long()
+        rr_tab = torch.tensor([CALIBRATED_ROLL_RESIST[s]
+                               for s in SHAPES], dtype=dtype,
+                              device=dev)
+        sd_tab = torch.tensor([CALIBRATED_SLIDE_DAMP[s]
+                               for s in SHAPES], dtype=dtype,
+                              device=dev)
+        roll_resist = rr_tab[shape_id]
+        slide_damp = calibrated_slide_damp(sd_tab[shape_id], mu,
+                                                  dtype)
+        roll_stick = calibrated_roll_stick(shape_kappa_inv, mu,
+                                                  dtype)
+        back_w = axes(CALIBRATED_BACK_W)
+        back_gss = axes(CALIBRATED_BACK_GSS)
+    else:
+        roll_resist, slide_damp = lanes(0.0), lanes(0.0)
+        roll_stick, back_w, back_gss = axes(0.0), axes(0.0), axes(1.0)
+    return TrayObjectParams(
+        mass=mass, mu=mu, kappa_inv=shape_kappa_inv, slip_eps=lanes(2e-3),
+        omega_n=axes(omega_n), zeta=axes(zeta),
+        tray_pos=torch.broadcast_to(
+            torch.tensor([0.0, 0.0, 0.4], dtype=dtype, device=dev), (B, 3)),
+        half_w=axes(0.025), h_com=lanes(0.025),
+        topple_on=topple_on_from_kappa(shape_kappa_inv),
+        roll_resist=roll_resist, slide_damp=slide_damp,
+        lag_fast=axes(lag_fast), roll_stick=roll_stick,
+        stick_vel=lanes(5e-3), back_w=back_w, back_gss=back_gss)
+
+
 class TrayObjectState(NamedTuple):
     theta: torch.Tensor       # (2,) actual tray tilt [tx, ty]
     theta_dot: torch.Tensor   # (2,)

@@ -24,11 +24,15 @@ from typing import NamedTuple
 
 import torch
 
+from dart_tpu_torch.adapt import lmpc_trainer as trainer
+from dart_tpu_torch.adapt import ppo as ppo_mod
+from dart_tpu_torch.adapt.lmpc_lagplant import observe8
 from dart_tpu_torch.control import mpc as mpc_mod
 from dart_tpu_torch.models import dynamics as dyn
 from dart_tpu_torch.physics import tray_object as to_mod
 from dart_tpu_torch.rollout.metrics import Metrics, compute_metrics
 from dart_tpu_torch.solver import ilqr
+from dart_tpu_torch.utils.tree import lane_where
 
 
 class PMPCScenarioResult(NamedTuple):
@@ -37,13 +41,6 @@ class PMPCScenarioResult(NamedTuple):
     # Sticky contact-loss flag of the LMPC evaluator (None where not
     # tracked, as in both batch evaluators).
     contact_lost: torch.Tensor | None = None
-
-
-def _shape_id(kappa_inv: torch.Tensor) -> torch.Tensor:
-    """Shape from the kappa signature: cube (0,0), cylinder (k,0), sphere
-    (k,k)."""
-    return torch.where(kappa_inv[..., 1] > 0, 2,
-                       torch.where(kappa_inv[..., 0] > 0, 1, 0))
 
 
 def _select_weights(shape_id: torch.Tensor, dtype):
@@ -59,57 +56,6 @@ def _select_weights(shape_id: torch.Tensor, dtype):
     return mpc_mod.PMPCWeights(Qp=row[..., 0], Qv=row[..., 1], R=row[..., 2])
 
 
-def _tray_params(shape_kappa_inv: torch.Tensor, mass: torch.Tensor,
-                 mu: torch.Tensor, dtype, tray_lag=None):
-    """Scenario rows -> TrayObjectParams with (B,) and (B, 2) leaves.
-    `tray_lag` is an optional (omega_n, zeta[, fast_frac]) tuple of
-    scalars or per-axis pairs. Default (None): the mass-interpolated
-    `calibrated_lag(mass)` plus the fitted per-shape dissipation and
-    backlash; `to_mod.LEGACY_TRAY_LAG` reproduces the r1/r2 artifacts
-    (optimistic lag, no dissipation)."""
-    B, dev = mass.shape[0], mass.device
-
-    def axes(x):
-        return torch.broadcast_to(
-            torch.as_tensor(x, dtype=dtype, device=dev), (B, 2))
-
-    def lanes(v):
-        return torch.full((B,), v, dtype=dtype, device=dev)
-
-    calibrated = tray_lag is None
-    lag = to_mod.calibrated_lag(mass, dtype) if calibrated else tray_lag
-    omega_n, zeta = lag[0], lag[1]
-    lag_fast = lag[2] if len(lag) > 2 else 0.0
-    if calibrated:
-        shape_id = _shape_id(shape_kappa_inv).long()
-        rr_tab = torch.tensor([to_mod.CALIBRATED_ROLL_RESIST[s]
-                               for s in to_mod.SHAPES], dtype=dtype,
-                              device=dev)
-        sd_tab = torch.tensor([to_mod.CALIBRATED_SLIDE_DAMP[s]
-                               for s in to_mod.SHAPES], dtype=dtype,
-                              device=dev)
-        roll_resist = rr_tab[shape_id]
-        slide_damp = to_mod.calibrated_slide_damp(sd_tab[shape_id], mu,
-                                                  dtype)
-        roll_stick = to_mod.calibrated_roll_stick(shape_kappa_inv, mu,
-                                                  dtype)
-        back_w = axes(to_mod.CALIBRATED_BACK_W)
-        back_gss = axes(to_mod.CALIBRATED_BACK_GSS)
-    else:
-        roll_resist, slide_damp = lanes(0.0), lanes(0.0)
-        roll_stick, back_w, back_gss = axes(0.0), axes(0.0), axes(1.0)
-    return to_mod.TrayObjectParams(
-        mass=mass, mu=mu, kappa_inv=shape_kappa_inv, slip_eps=lanes(2e-3),
-        omega_n=axes(omega_n), zeta=axes(zeta),
-        tray_pos=torch.broadcast_to(
-            torch.tensor([0.0, 0.0, 0.4], dtype=dtype, device=dev), (B, 3)),
-        half_w=axes(0.025), h_com=lanes(0.025),
-        topple_on=to_mod.topple_on_from_kappa(shape_kappa_inv),
-        roll_resist=roll_resist, slide_damp=slide_damp,
-        lag_fast=axes(lag_fast), roll_stick=roll_stick,
-        stick_vel=lanes(5e-3), back_w=back_w, back_gss=back_gss)
-
-
 def _solves_at(k: int, warmup_steps: int, control_every: int) -> bool:
     return k >= warmup_steps and (k - warmup_steps) % control_every == 0
 
@@ -123,16 +69,6 @@ def _trace_metrics(ps: torch.Tensor, us: torch.Tensor,
     return compute_metrics(X, us, target_xy, dt, tol=tol)
 
 
-def _lane_where(mask: torch.Tensor, a, b):
-    """Per-lane select over NamedTuples of leading-B leaves (nested
-    tuples recurse, None stays None)."""
-    if a is None:
-        return None
-    if isinstance(a, tuple):
-        return type(a)(*(_lane_where(mask, x, y) for x, y in zip(a, b)))
-    return torch.where(mask.reshape(mask.shape + (1,) * (a.dim() - 1)), a, b)
-
-
 def _pmpc_episodes(ctlr, n_steps: int, dt: float, control_every: int,
                    warmup_steps: int, tol: float, tray_lag):
     """The PMPC evaluators' episode loop around `ctlr` (`PMPC` or
@@ -144,11 +80,11 @@ def _pmpc_episodes(ctlr, n_steps: int, dt: float, control_every: int,
     def evaluate(shape_kappa_inv, mass, mu, target_xy):
         dtype, dev = mass.dtype, mass.device
         B = mass.shape[0]
-        obj_params = _tray_params(shape_kappa_inv, mass, mu, dtype, tray_lag)
+        obj_params = to_mod.scenario_params(shape_kappa_inv, mass, mu, dtype, tray_lag)
         # The model assumes the plant's friction; a python-float gravity
         # keeps the kernel branch open.
         params = dyn.PMPCParams(mu=mu, dt=dt)
-        weights = _select_weights(_shape_id(shape_kappa_inv), dtype)
+        weights = _select_weights(to_mod.shape_from_kappa(shape_kappa_inv), dtype)
         zero = torch.zeros((B,), dtype=dtype, device=dev)
         target6 = torch.stack([target_xy[:, 0], zero, target_xy[:, 1], zero,
                                torch.full_like(zero, 0.43), zero], -1)
@@ -199,6 +135,132 @@ def make_pmpc_evaluator(n_steps: int = 2500, dt: float = 0.002,
                           tol, tray_lag)
 
 
+def make_lmpc_evaluator(model, n_steps: int = 2500, dt: float = 0.002,
+                        control_every: int = 5, warmup_steps: int = 250,
+                        N: int = 12, max_iters: int = 4, tol: float = 0.01,
+                        param_update_every: int = 8, u_sign: float = -1.0,
+                        trace: bool = False, tray_lag=None,
+                        hold_after_convergence: bool = False,
+                        reengage_tol: float | None = None):
+    """LMPC scenario evaluator on the CONTACT PLANT with the trained policy
+    `model` (an `adapt.ppo.ActorCritic`) tuning the 34 model parameters
+    online: the closed-loop analogue of `LMPC/src/run.py:243-311` with the
+    plant swapped from MuJoCo to `tray_object`. JAX's single-episode
+    evaluator on a lane per row: one `LMPC.solve` (`ilqr.solve`, each
+    backward pass a `riccati_backward` launch on the card) for every lane
+    at every control period of `control_every` 2 ms plant steps, the
+    warm-up included, whose controls reach the plant only from
+    `warmup_steps` on. The policy adjusts the parameter vector every
+    `param_update_every` control steps (`rlmpc2.py:742`), with the mean
+    action; the learned model's tilt sign is inverted against the world
+    (`run.py:257`), hence ``u_sign=-1``.
+
+    Reference protocol (default): a lane freezes whole (carry, held
+    control, plant) at its first tolerance crossing after the warm-up
+    (`run.py:300-306`). ``hold_after_convergence=True``, the SETTLED
+    protocol: control keeps running and only the adaptation freezes, once
+    the lane is inside `tol` and slower than 2 cm/s, and re-engages past
+    ``reengage_tol`` (default ``1.2 * tol``), a hysteretic clutch. In both,
+    a lane that loses contact (off the tray or toppled) freezes whole from
+    there on and is flagged `contact_lost`.
+
+    Returns `evaluate(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2),
+    init_k (B,34)) -> PMPCScenarioResult`; `init_k` is the policy's
+    starting 34-vector (`adapt.lmpc_trainer.sample_init_k`, the mid-range
+    jittered init of `rlmpc2.py:618-623`). With `trace=True` it returns
+    (result, (positions, applied controls)), each (B, T, 2) over the
+    control periods."""
+    ctrl_dt = dt * control_every
+    ctlr = mpc_mod.LMPC(N=N, dt=ctrl_dt,
+                        cfg=ilqr.ILQRConfig(max_iters=max_iters))
+    n_ctrl = n_steps // control_every
+    act_cfg = ppo_mod.ParamActionConfig()
+    if reengage_tol is None:
+        reengage_tol = 1.2 * tol
+
+    def evaluate(shape_kappa_inv, mass, mu, target_xy, init_k):
+        dtype, dev = mass.dtype, mass.device
+        B = mass.shape[0]
+        obj_params = to_mod.scenario_params(shape_kappa_inv, mass, mu, dtype, tray_lag)
+        zero = torch.zeros((B,), dtype=dtype, device=dev)
+        target8 = torch.stack([target_xy[:, 0], zero, target_xy[:, 1]]
+                              + [zero] * 5, -1)
+
+        def substep(s, u):
+            for _ in range(control_every):
+                s = to_mod.step(s, u, obj_params, dt)
+            return s
+
+        cc = ctlr.init_carry(B, dtype, dev)
+        s = to_mod.init_state(dtype=dtype, device=dev, batch=B)
+        current_k = init_k
+        welford = ppo_mod.welford_init(trainer.BASE_OBS_DIM, dtype, dev,
+                                       (B,))
+        history = torch.zeros((B, trainer.HISTORY_LEN, trainer.BASE_OBS_DIM),
+                              dtype=dtype, device=dev)
+        u_prev = torch.zeros((B, 2), dtype=dtype, device=dev)
+        stopped = torch.zeros((B,), dtype=torch.bool, device=dev)
+        lost = torch.zeros_like(stopped)
+        ps = torch.empty((n_ctrl, B, 2), dtype=dtype, device=dev)
+        us = torch.empty_like(ps)
+        with torch.no_grad():
+            for k in range(n_ctrl):
+                x = observe8(s, obj_params)
+                base = torch.cat([x, target8, u_prev, current_k], -1)
+                welford_c, history_c, obs = trainer.observe(welford, history,
+                                                            base)
+                mean, _, _ = model(obs)
+                # The first tolerance crossing (`stopped`) gates the
+                # parameter updates: the zero-excitation clutch.
+                k_new = ppo_mod.apply_param_action(current_k, mean, act_cfg)
+                upd = ~stopped if k % param_update_every == 0 \
+                    else torch.zeros_like(stopped)
+                current_k_c = torch.where(upd[:, None], k_new, current_k)
+                cc_new, u, _ = ctlr.solve(cc, x, target8, current_k_c)
+                warm = k * control_every >= warmup_steps
+                if hold_after_convergence:
+                    cc_c = cc_new
+                    u_apply = u_sign * u if warm else torch.zeros_like(u)
+                    s_keep = substep(s, u_apply)
+                else:
+                    cc_c = lane_where(stopped, cc, cc_new)
+                    u = torch.where(stopped[:, None], u_prev, u)
+                    go = (~stopped) if warm else torch.zeros_like(stopped)
+                    u_apply = torch.where(
+                        go[:, None], u_sign * u,
+                        torch.where(stopped[:, None], u_sign * u_prev,
+                                    torch.zeros_like(u)))
+                    s_keep = lane_where(stopped, s, substep(s, u_apply))
+                # A lane that lost contact stays as it was, whole.
+                cc, s_keep, current_k, welford, history, u = (
+                    lane_where(lost, a, b) for a, b in zip(
+                        (cc, s, current_k, welford, history, u_prev),
+                        (cc_c, s_keep, current_k_c, welford_c, history_c,
+                         u)))
+                u_apply = torch.where(lost[:, None], torch.zeros_like(u_apply),
+                                      u_apply)
+                lost = lost | to_mod.contact_lost(s_keep)
+                err = torch.sqrt((s_keep.p[:, 0] - target_xy[:, 0]) ** 2
+                                 + (s_keep.p[:, 1] - target_xy[:, 1]) ** 2)
+                if hold_after_convergence:
+                    speed = torch.hypot(s_keep.v[:, 0], s_keep.v[:, 1])
+                    settled = (err < tol) & (speed < 0.02) if warm \
+                        else torch.zeros_like(stopped)
+                    stopped = (stopped | settled) & (err < reengage_tol)
+                elif warm:
+                    stopped = stopped | ((err < tol) & ~lost)
+                s, u_prev = s_keep, u
+                ps[k] = s.p
+                us[k] = u_apply
+        m = _trace_metrics(ps, us, target_xy, ctrl_dt, tol)
+        res = PMPCScenarioResult(metrics=m, final_p=s.p, contact_lost=lost)
+        if trace:
+            return res, (ps.movedim(0, 1), us.movedim(0, 1))
+        return res
+
+    return evaluate
+
+
 def make_pmpc_batch_evaluator(n_steps: int = 2500, dt: float = 0.002,
                               control_every: int = 5, warmup_steps: int = 250,
                               N: int = 15, u_bound: float = 0.6,
@@ -240,7 +302,7 @@ def _rmpc_episodes(ctlr, solve, n_steps: int, dt: float,
     def evaluate(shape_kappa_inv, mass, mu, target_xy):
         dtype, dev = mass.dtype, mass.device
         B = mass.shape[0]
-        obj_params = _tray_params(shape_kappa_inv, mass, mu, dtype, tray_lag)
+        obj_params = to_mod.scenario_params(shape_kappa_inv, mass, mu, dtype, tray_lag)
         zero = torch.zeros((B,), dtype=dtype, device=dev)
         target4 = torch.stack([target_xy[:, 0], zero, target_xy[:, 1], zero],
                               -1)
@@ -267,7 +329,7 @@ def _rmpc_episodes(ctlr, solve, n_steps: int, dt: float,
                         not ilqr.host_bool(stopped.all())):
                     cc_new, u_new, _ = solve(carry, observe(s), target4)
                     # Frozen lanes keep their carry and held control.
-                    carry = _lane_where(stopped, carry, cc_new)
+                    carry = lane_where(stopped, carry, cc_new)
                     u = torch.where(stopped[:, None], u, u_new)
                 s_next = to_mod.step(s, u, obj_params, dt)
                 if k >= warmup_steps:
@@ -277,7 +339,7 @@ def _rmpc_episodes(ctlr, solve, n_steps: int, dt: float,
                                            < tol)
                 else:
                     stopped_n = stopped
-                s = _lane_where(stopped, s, s_next)
+                s = lane_where(stopped, s, s_next)
                 stopped = stopped_n
                 ps[k] = s.p
                 us[k] = u

@@ -1,11 +1,13 @@
-"""Timing of a whole call on the host clock (port of
-`dart_tpu.utils.timing.timed_call`)."""
+"""Timing on the host clock (port of `dart_tpu.utils.timing`'s
+`timed_call` and `Stopwatch`)."""
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
+import numpy as np
 import torch
 
 
@@ -29,3 +31,35 @@ def timed_call(fn: Callable, *args, reps: int = 3):
         out = fn(*args)
         _sync()
     return out, first_s, (time.perf_counter() - t0) / reps
+
+
+class Stopwatch:
+    """Wall-clock stage timers with mean/p50/p99 summaries (port of
+    `dart_tpu.utils.timing.Stopwatch`); the card is synchronised at the
+    end of each measured stage."""
+
+    def __init__(self):
+        self.samples: dict[str, list[float]] = {}
+
+    @contextlib.contextmanager
+    def measure(self, stage: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            _sync()
+            self.samples.setdefault(stage, []).append(
+                time.perf_counter() - t0)
+
+    def summary(self) -> dict[str, dict[str, float]]:
+        out = {}
+        for stage, xs in self.samples.items():
+            a = np.asarray(xs)
+            out[stage] = {
+                "n": int(a.size),
+                "mean_ms": float(a.mean() * 1e3),
+                "p50_ms": float(np.percentile(a, 50) * 1e3),
+                "p99_ms": float(np.percentile(a, 99) * 1e3),
+                "total_s": float(a.sum()),
+            }
+        return out

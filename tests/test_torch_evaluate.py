@@ -32,7 +32,11 @@ from dart_tpu.parallel import sweep as jsw
 from dart_tpu.physics import tray_object as jto
 from dart_tpu.rollout import evaluate as jev
 from dart_tpu.rollout import metrics as jme
+from dart_tpu_torch.adapt import lmpc_lagplant as tlag
+from dart_tpu_torch.adapt import lmpc_trainer as ttr
+from dart_tpu_torch.adapt import ppo as tppo
 from dart_tpu_torch.cli import sweep as tcli
+from dart_tpu_torch.control import mpc as tmpc
 from dart_tpu_torch.io import scenes as tsc
 from dart_tpu_torch.parallel import sweep as tsw
 from dart_tpu_torch.physics import tray_object as tto
@@ -118,15 +122,15 @@ def test_scenes_match_jax(dtype):
 
 @pytest.mark.parametrize("lag", ["calibrated", "legacy"])
 def test_tray_params_per_lane(lag):
-    """`_tray_params` on the 18-config grid, each lane against JAX's
+    """`scenario_params` on the 18-config grid, each lane against JAX's
     single-lane params broadcast to the port's (B,) / (B, 2) layout."""
     tray_lag = None if lag == "calibrated" else jto.LEGACY_TRAY_LAG
     g = jsc.sweep_grid(dtype=jnp.float64)
     want = jax.vmap(lambda k, m, f: jev._tray_params(
         k, m, f, jnp.float64, tray_lag))(g.kappa_inv, g.mass, g.mu)
     tg = tsc.sweep_grid(dtype=torch.float64, device="cpu")
-    got = tev._tray_params(tg.kappa_inv, tg.mass, tg.mu, torch.float64,
-                           tray_lag)
+    got = tto.scenario_params(tg.kappa_inv, tg.mass, tg.mu, torch.float64,
+                              tray_lag)
     for name, a, b in zip(jto.TrayObjectParams._fields, want, got):
         a = np.asarray(a)
         assert b.shape[0] == 18 and b.dtype == torch.float64, name
@@ -135,7 +139,7 @@ def test_tray_params_per_lane(lag):
         np.testing.assert_allclose(b.numpy(), a, rtol=0, atol=1e-15,
                                    err_msg=name)
     # The weights table per lane, as JAX's vmapped `_select_weights`.
-    sid = tev._shape_id(tg.kappa_inv)
+    sid = tto.shape_from_kappa(tg.kappa_inv)
     np.testing.assert_array_equal(sid.numpy(), np.asarray(g.shape_id))
     w_t = tev._select_weights(sid, torch.float64)
     w_j = jax.vmap(lambda s: jev._select_weights(s, jnp.float64))(g.shape_id)
@@ -186,7 +190,7 @@ def test_run_sweep_batched_matches_direct_call_and_jax():
     kw = dict(n_steps=40, tol=0.06)
     ev_j, ev_t = _evaluators("pmpc", **kw)
     k, m, mu, t = _rows()
-    sid = tev._shape_id(torch.from_numpy(k)).to(torch.int32)
+    sid = tto.shape_from_kappa(torch.from_numpy(k)).to(torch.int32)
     batch = tsc.ScenarioBatch(sid, *(torch.from_numpy(x)
                                      for x in (m, mu, k, t)))
     res, agg = tsw.run_sweep_batched(ev_t, batch, lane_multiple=8)
@@ -249,11 +253,25 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
         tto.init_state()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tto.make_params()
+    # The trainers' constructors and draws, before anything is drawn.
+    gen = torch.Generator().manual_seed(0)
+    ctlr = tmpc.LMPC(N=4, dt=0.01)
+    for make in (lambda: ttr.env_init(ctlr, ttr.EnvConfig(), 2, gen=gen),
+                 lambda: tlag.env_init(ctlr, tlag.LagEnvConfig(), 2, gen=gen),
+                 lambda: ttr.init_train_state(gen, tppo.PPOConfig()),
+                 lambda: ttr.init_replay(2, 2),
+                 lambda: ttr.draw_step(gen, 2),
+                 lambda: tlag.draw_step(gen, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert torch.equal(torch.rand(3, generator=gen),
+                       torch.rand(3, generator=torch.Generator().manual_seed(0)))
     for argv, needle in (
             (["--controller", "rmpc", "--batch_major"], "no CUDA device"),
             (["--controller", "pmpc", "--batch_major", "--cpu"],
              "supports --controller rmpc"),
-            (["--controller", "lmpc", "--cpu"], "Queue 1 item 4"),
+            (["--controller", "lmpc", "--cpu", "--checkpoint_dir",
+              "/nonexistent"], "no checkpoint"),
             (["--controller", "mppi", "--cpu"], "Queue 1 item 6")):
         with pytest.raises(SystemExit) as e:
             tcli.main(argv)

@@ -31,6 +31,7 @@ from dart_tpu_torch.io import logging as tlog
 from dart_tpu_torch.io import scenes as tsc
 from dart_tpu_torch.io.config import PRESETS
 from dart_tpu_torch.parallel import sweep as tsw
+from dart_tpu_torch.physics import tray_object as tto
 from dart_tpu_torch.rollout import evaluate as tev
 from dart_tpu_torch.utils import timing
 
@@ -133,7 +134,7 @@ def test_run_sweep_matches_direct_call_and_jax_aggregate():
     JAX's shard_map formula over them."""
     _, ev_t = _evaluators("pmpc", n_steps=40, tol=0.06)
     k, m, mu, t = _rows()
-    sid = tev._shape_id(torch.from_numpy(k)).to(torch.int32)
+    sid = tto.shape_from_kappa(torch.from_numpy(k)).to(torch.int32)
     batch = tsc.ScenarioBatch(sid, *(torch.from_numpy(x)
                                      for x in (m, mu, k, t)))
     res, agg = tsw.run_sweep(ev_t, batch)
@@ -235,9 +236,12 @@ def test_commands_need_the_card_unless_asked(monkeypatch, capsys):
         assert tcli_pmpc.main(opt + ["--cpu"]) == 2
         assert item in capsys.readouterr().err
     with pytest.raises(SystemExit):
-        tcli_sweep.main(["--controller", "lmpc", "--cpu"])
-    assert "item 4" in capsys.readouterr().err
-    assert dispatch(["lmpc"]) == 2
+        tcli_sweep.main(["--controller", "mppi", "--cpu"])
+    assert "item 6" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        dispatch(["lmpc"])
+    assert e.value.code != 0
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 def _jax_commands() -> dict:

@@ -12,9 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from dart_tpu.adapt import ppo as jppo
 from dart_tpu.control import mpc as jmpc
 from dart_tpu.models import dynamics as jdyn
+from dart_tpu.solver import mppi as jmppi
 from dart_tpu.solver import ocp as jocp
 from dart_tpu_torch.control import mpc as tmpc
 from dart_tpu_torch.models import dynamics as tdyn
@@ -126,8 +126,8 @@ def test_from_jax_to_numpy_round_trip():
     diag = from_jax(jax_trees[-1], "cpu", torch.float32)
     assert diag.iters.dtype == torch.int32       # integers keep their type
     with pytest.raises(TypeError, match="no port counterpart"):
-        from_jax(jppo.WelfordState(mean=np.zeros(8), m2=np.ones(8),
-                                   count=np.ones(())), "cpu")
+        from_jax(jmppi.MPPICarry(U=np.zeros((N, 2)), key=np.zeros(2)),
+                 "cpu")
 
 
 def test_stage_and_terminal_cost_match_jax():
@@ -177,5 +177,6 @@ def test_port_never_imports_jax():
     for f in files:
         for mod in _imported_modules(f):
             root = mod.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax"), (f, mod)
+            assert root not in ("jax", "jaxlib", "flax", "optax",
+                                "orbax"), (f, mod)
             assert root != "dart_tpu", (f, mod)

@@ -19,7 +19,6 @@ import torch
 from dart_tpu.physics import tray_object as jto
 from dart_tpu.rollout import evaluate as jev
 from dart_tpu_torch.physics import tray_object as tto
-from dart_tpu_torch.rollout import evaluate as tev
 from dart_tpu_torch.utils.convert import to_numpy
 
 DT = 0.002
@@ -65,7 +64,7 @@ def _lanes():
 
 def _params(dtype_np, lag):
     """(JAX params, port params) for the 9 rows under one lag; the JAX
-    side is `_tray_params` vmapped, the port's its batched counterpart.
+    side is `_tray_params` vmapped, the port's `scenario_params`.
     Half of the rolling lanes get a breakaway cone (roll_stick 0.3) so the
     stiction branch runs."""
     kap, mass, mu = _lanes()
@@ -73,9 +72,9 @@ def _params(dtype_np, lag):
     td = torch.float64 if dtype_np == np.float64 else torch.float32
     jp = jax.vmap(lambda k, m, f: jev._tray_params(k, m, f, jd, lag))(
         jnp.asarray(kap, jd), jnp.asarray(mass, jd), jnp.asarray(mu, jd))
-    tp = tev._tray_params(torch.tensor(kap, dtype=td),
-                          torch.tensor(mass, dtype=td),
-                          torch.tensor(mu, dtype=td), td, lag)
+    tp = tto.scenario_params(torch.tensor(kap, dtype=td),
+                             torch.tensor(mass, dtype=td),
+                             torch.tensor(mu, dtype=td), td, lag)
     stick = np.where((kap > 0) & (np.arange(len(mass))[:, None] % 2 == 0),
                      0.3, 0.0).astype(dtype_np)
     jp = jp._replace(roll_stick=jnp.asarray(stick))
