@@ -68,7 +68,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    rescue's lanes and seconds (the defaults over 2500 steps take ~1 h on
    the card, out of the time limit);
 15. sweep: the CLI `python -m dart_tpu_torch.cli.sweep --controller rmpc
-   --batch_major --runtime 10` (18 rows padded to 128) on the legacy and on
+   --batch_major --runtime 7` (18 rows padded to 128) on the legacy and on
    the calibrated lag, each gated on converging as many rows as JAX's own
    batch evaluator does on the CPU (JAX_SWEEP), rows printed beside JAX's;
 16. solve: the port's `ilqr.solve` (`vmap(solve)` of the JAX package on a
@@ -98,7 +98,7 @@ Phases, each of which raises on failure (so the script exits non-zero):
    (8 envs, N=12, dt=0.01, 4 iterations, the 520-wide policy) against the
    same call on CPU tensors with the same CPU-drawn inputs (1e-9), every
    backward pass a Riccati launch; the Riccati kernel's time at that
-   shape; `lmpc --train` for 2 updates of 8 envs x 8 steps (finite
+   shape; `lmpc --train` for 1 update of 8 envs x 8 steps (finite
    losses, moved parameters, checkpoints written and reloaded equal) and
    `lmpc --test` on what it wrote, printing seconds per train step and
    per control step, launches and host reads;
@@ -106,7 +106,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
    lagplant_r5 tuner on four rows, held to JAX's own run (JAX_LMPC_EVAL)
    within 1e-9; then `lmpc --test --env cube_1x0_0x1` and `sweep
    --controller lmpc` at short runtimes, gated on exit 0 and finite rows;
-22. times (printed, not gated): each kernel and its plain version per call
+22. arm: the dual-arm world step's layers (chain FK, mass matrix, bias
+   forces and Jdot by autodiff, forward dynamics and step with an EE
+   wrench, the ADMM QP, the impedance controller on `_arm_dynamics`
+   snapshots) on 4096 random lanes of each xArm7 chain against the same
+   calls on CPU tensors, float64 (1e-10 relative) and float32 (within 10x
+   the CPU's own float32 distance from float64); one world step at
+   B=4096: ms, the card's synchronising calls (torch's sync debug mode),
+   device ops;
+23. full-stack: `run_full_stack` with the `pmpc --full_stack` command's
+   PMPC in float64, card against CPU tensors (two control steps after a
+   40-step warm-up, 1e-9), every backward pass a Riccati launch; the
+   world step's ms, device ops and synchronising calls at B=1; `python -m dart_tpu_torch.cli pmpc
+   --full_stack --runtime 0.52` in float32 and in float64 with
+   `--no_tune --log_dir`, gated on JAX's own commands (JAX_FULL_STACK);
+24. fullstack-train: two float64 `env_step`s of the full-stack trainer
+   (8 envs, N=8, 4 iterations, 5 world steps of 20 ADMM iterations) with
+   the converted fullstack_r5 tuner, card against CPU tensors on the same
+   CPU-drawn inputs (1e-9); `make_train_step(replay=True)` for 1 update
+   of 8 envs x 2 steps: finite losses, moved parameters, seconds and
+   Riccati launches a train step;
+25. times (printed, not gated): each kernel and its plain version per call
    (CUDA events), each kernel's device time per launch (torch.profiler),
    the closed-loop steps (host clock), and each kernel's launch geometry
    (threads, lanes and shared bytes per block, resident blocks per SM).
@@ -1052,13 +1072,13 @@ def phase_kernel_times(dev: torch.device, card: str) -> dict:
     krs.rmpc_solve(*args, **RMPC_KW)
     torch.cuda.synchronize()
     ms = median_ms(lambda: krs.rmpc_solve(*args, **RMPC_KW), 20)
+    # The plain version takes ~10 s a call here: one timed call.
     stats = {}
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     krs.rmpc_solve_reference(*args, **RMPC_KW, stats=stats)
     torch.cuda.synchronize()
-    first = time.perf_counter() - t0
-    plain_ms = median_ms(lambda: krs.rmpc_solve_reference(*args, **RMPC_KW),
-                         2)
+    plain_ms = (time.perf_counter() - t0) * 1e3
     dev_ms = device_ms(lambda: krs.rmpc_solve(*args, **RMPC_KW), 10,
                        "rmpc_solve")
     trials = int(stats["trials"].sum())
@@ -1066,7 +1086,7 @@ def phase_kernel_times(dev: torch.device, card: str) -> dict:
     bound_ms, bound_by = bound(flops, nbytes)
     print(f"[times] rmpc_solve B={B} N={RMPC_N} 6x4x3 float32, median per "
           f"call: kernel {ms:.4f} ms ({B / ms * 1e3:.4g} solves/s), plain "
-          f"{plain_ms:.2f} ms (first call {first * 1e3:.2f} ms); device per "
+          f"{plain_ms:.2f} ms (one call); device per "
           f"launch (profiler) {dev_ms:.4f} ms [{card}]")
     print(f"[times] rmpc_solve work: {flops} FLOPs, {trans} tanh/sin/cos "
           f"({trials} line-search trials, {trials / B:.2f} per lane), "
@@ -1610,34 +1630,36 @@ def phase_scan(dev: torch.device, card: str) -> None:
 
 EVAL_STEPS = 2500   # the evaluators' default n_steps (5 s simulated)
 EVAL_SOLVES = 450   # (2500 - 250 warm-up steps) / 5 steps per control step
-SWEEP_RUNTIME = 10.0
-SWEEP_SOLVES = 950  # (5000 - 250) / 5
-# JAX's own batch-major RMPC sweep of the same 18 rows at 10 s, on the CPU
+SWEEP_RUNTIME = 7.0
+SWEEP_SOLVES = 650  # (3500 - 250) / 5
+# JAX's own batch-major RMPC sweep of the same 18 rows at 7 s, on the CPU
 # in float32 through `make_rmpc_batch_evaluator(use_kernel=False)`:
 #   JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_evaluate.py \
-#       {calibrated,legacy} 10
+#       {calibrated,legacy} 7
 # Each sweep run is gated on converging at least as many rows as JAX does.
 # On the legacy lag JAX converges 14 of 18: the mu=0.2 cube and cylinder
-# rows end 48.5 and 21.3 mm out. The 18/18 of the JAX package's r2
-# artifact (artifacts/sweep_rmpc_batch_major_r2.json) predates its r3
-# exact (ZOH) lag update.
+# rows end 53.9 and 28.5 mm out (48.5 and 21.3 at 10 s). Its slowest row
+# converges at 6.018 s (calibrated, the card's at 6.04 s), so 7 s converges
+# the rows 10 s does. The 18/18 of the JAX package's r2 artifact
+# (artifacts/sweep_rmpc_batch_major_r2.json) predates its r3 exact (ZOH)
+# lag update.
 JAX_SWEEP = {
     "calibrated": {
         "n_converged": 18,
         "sse_mm": [9.997, 9.997, 9.997, 9.966, 9.994, 9.995, 9.945, 9.995,
-                   9.998, 9.972, 9.984, 9.999, 9.998, 9.902, 9.988, 9.951,
-                   9.907, 9.93],
+                  9.998, 9.972, 9.984, 9.999, 9.998, 9.902, 9.988, 9.951,
+                  9.907, 9.93],
         "conv_time_s": [2.07, 3.058, 6.018, 2.114, 3.186, 5.664, 1.41, 2.798,
-                        5.308, 1.466, 2.624, 5.2, 1.43, 1.4, 1.772, 1.442,
-                        1.4, 1.818]},
+                       5.308, 1.466, 2.624, 5.2, 1.43, 1.4, 1.772, 1.442, 1.4,
+                       1.818]},
     "legacy": {
         "n_converged": 14,
-        "sse_mm": [9.974, 9.943, 48.474, 9.974, 9.943, 48.474, 9.99, 9.988,
-                   21.311, 9.99, 9.988, 21.311, 9.968, 9.949, 9.957, 9.968,
-                   9.949, 9.957],
+        "sse_mm": [9.974, 9.943, 53.923, 9.974, 9.943, 53.923, 9.99, 9.988,
+                  28.537, 9.99, 9.988, 28.537, 9.968, 9.949, 9.957, 9.968,
+                  9.949, 9.957],
         "conv_time_s": [2.278, 2.814, None, 2.278, 2.814, None, 1.962, 3.188,
-                        None, 1.962, 3.188, None, 1.496, 1.252, 1.21, 1.496,
-                        1.252, 1.21]},
+                       None, 1.962, 3.188, None, 1.496, 1.252, 1.21, 1.496,
+                       1.252, 1.21]},
 }
 SWEEP_ARTIFACT = (Path(__file__).resolve().parent / "artifacts"
                   / "sweep_rmpc_batch_major_r2.json")
@@ -2002,7 +2024,7 @@ def phase_rmpc_eval(dev: torch.device, card: str) -> dict:
 
 def phase_sweep(dev: torch.device, card: str) -> dict:
     """`python -m dart_tpu_torch.cli.sweep --controller rmpc --batch_major
-    --runtime 10` (18 rows padded to 128) through the CLI's `main`, on the
+    --runtime 7` (18 rows padded to 128) through the CLI's `main`, on the
     legacy and on the calibrated lag, each gated on converging as many rows
     as JAX's own evaluator does (JAX_SWEEP)."""
     from dart_tpu_torch.cli import sweep as cli
@@ -2728,15 +2750,15 @@ JAX_LMPC_EVAL = {
 
 # The trainer's float32 control step took 3.7 s on an H100 at 700 W (4
 # iterations whose backtracking runs all 11 trials; PERF.md section 6), so
-# the commands run short: 2 updates of 8 envs x 8 steps, 8 test steps, and
-# 5 control periods of the contact-plant commands.
+# the commands run short: 1 update of 8 envs x 8 steps, 4 test steps, and
+# 3 control periods of the contact-plant commands.
 LMPC_TRAIN_B = 8           # the lmpc command's --envs
 LMPC_TRAIN_STEPS = 4       # collect_rollout steps held to the CPU
-LMPC_TRAIN_CLI = ["--updates", "2", "--envs", "8", "--rollout_len", "8"]
-LMPC_TEST_STEPS = 8        # lmpc --test --eval_episode_steps
-LMPC_ENV_STEPS = 5         # lmpc --test --env: control periods
-LMPC_SWEEP_RUNTIME = 0.05  # sweep --controller lmpc: 5 control periods
-LMPC_SWEEP_PERIODS = 5
+LMPC_TRAIN_CLI = ["--updates", "1", "--envs", "8", "--rollout_len", "8"]
+LMPC_TEST_STEPS = 4        # lmpc --test --eval_episode_steps
+LMPC_ENV_STEPS = 3         # lmpc --test --env: control periods
+LMPC_SWEEP_RUNTIME = 0.03  # sweep --controller lmpc: 3 control periods
+LMPC_SWEEP_PERIODS = 3
 # float64: the card and the CPU run the same operations in another order
 # (reductions, the Riccati kernel's FMAs); the policy's forward pass and
 # one PPO update agree far inside 1e-10 (largest difference), the LMPC
@@ -2956,7 +2978,7 @@ def phase_lmpc_train(dev: torch.device, card: str) -> dict:
     CPU-drawn inputs (1e-9 on actions, rewards, values and every state
     leaf), every backward pass a Riccati launch and none the plain
     version; the kernel at this path's shape, float32; (b) `lmpc --train`
-    for two updates of 8 envs x 8 steps: finite losses, moved
+    for one update of 8 envs x 8 steps: finite losses, moved
     parameters, best and latest written and reloaded equal; (c) `lmpc
     --test` on what it wrote."""
     from dart_tpu_torch.adapt import lmpc_trainer as trainer
@@ -3276,10 +3298,515 @@ def phase_lmpc_eval(dev: torch.device, card: str) -> dict:
     return out
 
 
+# The dual-arm stack: the world step's layers on the card against the same
+# calls on CPU tensors, the `pmpc --full_stack` command against JAX's own,
+# and the full-stack LMPC trainer.
+ARM_B = 4096                # random lanes of each chain
+ARM_F64_RTOL = 1e-10
+# float32: the card's distance from the CPU's float64 result at most this
+# many times the CPU's own float32 distance from it (floor 1e-6 relative).
+ARM_F32_FACTOR = 10
+WORLD_STEPS_TIMED = 50
+# The command: 260 world steps, two control steps after its 250 at rest.
+FULL_STACK_RUNTIME = 0.52
+FS_CLI_WARMUP = 250
+# run_full_stack card vs CPU in float64: two control steps after a 40-step
+# warm-up, short enough that the joints' friction chatter
+# (tests/test_torch_full_stack.py) has not grown round-off past the gate.
+FS_EPISODE_STEPS, FS_EPISODE_WARMUP = 50, 40
+FS_EPISODE_TOL = 1e-9
+# JAX's own `python -m dart_tpu.cli pmpc --full_stack --cpu --runtime
+# FULL_STACK_RUNTIME` (float32, --f64, --f64 --no_tune), and how far a
+# 1-ulp change of one of its 14 initial joint angles moves its float64
+# error (m) and effort (relative): `JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/test_torch_full_stack.py`.
+JAX_FULL_STACK = {
+    "float32": {
+        "converged": False,
+        "steady_state_error": 0.06410615648084447,
+        "control_effort": 0.009006033651530743
+    },
+    "float64": {
+        "converged": False,
+        "steady_state_error": 0.06410622722468579,
+        "control_effort": 0.009023591892329777,
+        "witness": {
+            "sse_max": 3.9602632589952336e-08,
+            "sse_median": 1.1329181488772821e-08,
+            "effort_rel_max": 0.0014000812866061807,
+            "effort_rel_median": 0.00033821624919500026
+        }
+    },
+    "float64_no_tune": {
+        "converged": False,
+        "steady_state_error": 0.06410977133873949,
+        "control_effort": 0.005073183750324275,
+        "witness": {
+            "sse_max": 2.898027245956669e-08,
+            "sse_median": 1.0202958422578234e-08,
+            "effort_rel_max": 0.0008301815525513234,
+            "effort_rel_median": 0.00044623095350421194
+        }
+    }
+}
+# The float32 command within FS_F32_FACTOR x JAX's own float32-vs-float64
+# gap; the float64 ones within FS_F64_FACTOR x the largest 1-ulp change.
+FS_F32_FACTOR = 10
+FS_F64_FACTOR = 10
+# The command in float32 at its defaults, and once in float64 with the
+# general weights and the npz log.
+FS_CLI = (("float32", []),
+          ("float64_no_tune", ["--f64", "--no_tune", "--log_dir"]))
+# The full-stack trainer (tools/train_lmpc_fullstack.py's settings).
+FST_B = 8
+FST_N = 8
+FST_STEPS = 2               # float64 env_steps held card vs CPU
+FST_TOL = 1e-9
+FST_UPDATES = 1
+FST_ROLLOUT = 2
+
+
+def _rel_err(got, want) -> float:
+    """`_max_diff` relative to |want|, the largest over a tuple's
+    tensors."""
+    if isinstance(got, tuple):
+        return max(_rel_err(g, w) for g, w in zip(got, want))
+    return _max_diff(got, want, True)
+
+
+@contextlib.contextmanager
+def sync_watch():
+    """Count the card's synchronising calls (torch's sync debug mode) made
+    in the block, by the line of this repo's code that made them."""
+    import collections
+    import warnings
+
+    torch.cuda.synchronize()
+    box = collections.Counter()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in seen:
+        if "synchroniz" in str(w.message):
+            box[f"{Path(w.filename).name}:{w.lineno}"] += 1
+
+
+def _arm_inputs(dtype: torch.dtype, dev: torch.device, n: int):
+    """Random lanes of both chains (2, n, ...) near the home pose, drawn
+    from a seeded numpy generator: joints, rates, torques, EE wrenches, a
+    QP per lane (tests/test_arm.py's construction) and EE targets."""
+    from dart_tpu_torch.rollout import full_stack as fs
+
+    rng = np.random.default_rng(21)
+    home = np.asarray([fs.HOME_QL, fs.HOME_QR])
+    q = home[:, None] + rng.uniform(-0.6, 0.6, (2, n, 7))
+    qd = rng.normal(size=(2, n, 7)) * 0.5
+    tau = rng.normal(size=(2, n, 7)) * 10.0
+    f_ext = rng.normal(size=(2, n, 6)) * 5.0
+    L = rng.normal(size=(n, 7, 7))
+    P = L @ L.transpose(0, 2, 1) + np.eye(7)
+    qv = rng.normal(size=(n, 7))
+    A = rng.normal(size=(n, 21, 7))
+    c = np.einsum("bij,bj->bi", A, rng.normal(size=(n, 7))) * 0.1
+    w = rng.uniform(0.5, 2.0, (n, 21))
+    dpos = rng.normal(size=(2, n, 3)) * 0.02
+    dquat = rng.normal(size=(2, n, 4)) * 0.05
+    return [torch.from_numpy(x).to(dev, dtype) for x in (
+        q, qd, tau, f_ext, P, qv, A, c - w, c + w, dpos, dquat)]
+
+
+def _arm_calls(scene, dtype: torch.dtype, dev: torch.device, n: int):
+    """The world step's layers on n lanes of both chains: {name: result}."""
+    from dart_tpu_torch.control import arm as arm_mod
+    from dart_tpu_torch.ops import qp
+    from dart_tpu_torch.physics import chain
+    from dart_tpu_torch.rollout import full_stack as fs
+    from dart_tpu_torch.utils.quat import quat_normalize
+
+    q, qd, tau, f_ext, P, qv, A, lo, hi, dpos, dquat = _arm_inputs(
+        dtype, dev, n)
+    arms = fs._arms(scene)
+    out = {}
+    with torch.no_grad():
+        out["fk"] = tuple(chain.fk(arms, q))
+        out["mass_matrix"] = chain.mass_matrix(arms, q)
+        out["bias_forces"] = chain.bias_forces(arms, q, qd)
+        out["jac_and_jacdot"] = chain.jac_and_jacdot(arms, q, qd, 7,
+                                                     fs.EE_OFFSET)
+        out["forward_dynamics"] = chain.forward_dynamics(arms, q, qd, tau,
+                                                         f_ext=f_ext)
+        out["step"] = chain.step(arms, q, qd, tau, DT, f_ext=f_ext)
+        sol = qp.solve_qp_admm(P, qv, A, lo, hi, iters=40)
+        out["solve_qp_admm"] = (sol.x, sol.y)
+        dyn, _ = fs._snapshot(arms, q, qd)
+        pos, quat = dyn.ee_pos, dyn.ee_quat
+        carry = arm_mod.arm_init_carry(dtype, dev, (2, n))
+        c2, tq, _ = arm_mod.compute_torque(
+            carry, dyn, pos + dpos, quat_normalize(quat + dquat),
+            scene.arm_params, qp_iters=40)
+        out["compute_torque"] = (c2.qdd_prev, c2.y, tq)
+    return out
+
+
+def _world_step_numbers(scene, st, u, op, card: str, label: str) -> dict:
+    """One `full_step` (qp_iters 40): host-clock ms over WORLD_STEPS_TIMED
+    steps, the card's synchronising calls in one step, and the device ops
+    and busy time per step under the profiler."""
+    from dart_tpu_torch.rollout import full_stack as fs
+
+    def step():
+        return fs.full_step(scene, st, u, op, DT, qp_iters=40)
+
+    with torch.no_grad():
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(WORLD_STEPS_TIMED):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / WORLD_STEPS_TIMED * 1e3
+        with sync_watch() as syncs:
+            step()
+        traced_steps(step, 10, card, label)
+    n_sync = sum(syncs.values())
+    print(f"[{label}] full_step B={st.qL.shape[0]} "
+          f"{str(st.qL.dtype)[6:]}: {ms:.3f} ms a world step (host clock, "
+          f"{WORLD_STEPS_TIMED} steps); {n_sync} synchronising calls a step"
+          f" {dict(syncs)} [{card}]")
+    return {"ms": ms, "syncs": n_sync, "where": dict(syncs)}
+
+
+def phase_arm(dev: torch.device, card: str) -> dict:
+    """The world step's layers (chain FK, mass matrix, bias forces, Jdot,
+    forward dynamics and step with an EE wrench, the ADMM QP, the impedance
+    controller on `_arm_dynamics` snapshots) on ARM_B random lanes of each
+    chain on the card against the same calls on CPU tensors: float64 to
+    ARM_F64_RTOL relative, float32 within ARM_F32_FACTOR x the CPU's own
+    float32 distance from its float64 result. Then one world step at
+    B=ARM_B (the full-stack phase takes B=1): ms, synchronising calls,
+    device ops."""
+    from dart_tpu_torch.physics import tray_object as to_mod
+    from dart_tpu_torch.rollout import full_stack as fs
+
+    cpu = torch.device("cpu")
+    res = {}
+    ref = _arm_calls(fs.make_scene(DT, torch.float64, cpu), torch.float64,
+                     cpu, ARM_B)
+    for dtype in (torch.float64, torch.float32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_out = _arm_calls(fs.make_scene(DT, dtype, dev), dtype, dev,
+                              ARM_B)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        cpu32 = None if dtype == torch.float64 else _arm_calls(
+            fs.make_scene(DT, dtype, cpu), dtype, cpu, ARM_B)
+        for name in card_out:
+            err = _rel_err(card_out[name], ref[name])
+            if dtype == torch.float64:
+                gate = ARM_F64_RTOL
+                print(f"[arm] {name} B=2x{ARM_B} float64: card vs CPU "
+                      f"{err:.3e} relative (gate {gate:.0e})")
+            else:
+                own = _rel_err(cpu32[name], ref[name])
+                gate = ARM_F32_FACTOR * max(own, 1e-6)
+                print(f"[arm] {name} B=2x{ARM_B} float32: card vs the CPU's "
+                      f"float64 {err:.3e} relative, the CPU's float32 "
+                      f"{own:.3e} (gate {gate:.3e})")
+            if not err <= gate:
+                raise AssertionError(f"arm: {name} {str(dtype)[6:]} {err} "
+                                     f"> {gate}")
+            res[(name, str(dtype)[6:])] = err
+        print(f"[arm] all layers at B=2x{ARM_B} {str(dtype)[6:]}: "
+              f"{card_s:.2f} s on the card, first call [{card}]")
+    scene = fs.make_scene(DT, torch.float32, dev)
+    op = to_mod.make_params("cube", 1.0, 0.1, dtype=torch.float32,
+                            device=dev)
+    st = fs.init_full_state(torch.float32, device=dev, batch=ARM_B)
+    u = torch.full((ARM_B, 2), 0.05, dtype=torch.float32, device=dev)
+    return {"errs": res,
+            "world": _world_step_numbers(scene, st, u, op, card, "arm")}
+
+
+def _fs_episode(dev: torch.device, dtype: torch.dtype):
+    """`run_full_stack` with the `pmpc --full_stack` command's controller
+    and scene (cube, 1 kg, mu 0.1, target (0.05, -0.04)) for
+    FS_EPISODE_STEPS after FS_EPISODE_WARMUP at rest; returns (positions,
+    tilts, controls) (1, T, 2) each and the host-clock seconds."""
+    from dart_tpu_torch.control import mpc as mpc_mod
+    from dart_tpu_torch.models import dynamics as dyn
+    from dart_tpu_torch.physics import tray_object as to_mod
+    from dart_tpu_torch.rollout import full_stack as fs
+
+    scene = fs.make_scene(DT, dtype, dev)
+    op = to_mod.make_params("cube", 1.0, 0.1, dtype=dtype, device=dev)
+    ctlr = mpc_mod.PMPC(N=15, dt=DT, u_bound=0.6,
+                        cfg=mpc_mod.ilqr.ILQRConfig(max_iters=10))
+    w = mpc_mod.pmpc_schedule_weights(
+        mpc_mod.PMPC_WEIGHTS["cube"], torch.tensor(0.1, dtype=dtype,
+                                                   device=dev), True)
+    params = dyn.PMPCParams(mu=0.1, dt=DT)
+    t6 = torch.tensor([[0.05, 0, -0.04, 0, 0.43, 0]], dtype=dtype,
+                      device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, th, us, _ = fs.run_full_stack(
+        scene, lambda c, o, t: ctlr.solve(c, o, t, params, w),
+        ctlr.init_carry(1, dtype, dev), fs.init_full_state(dtype, device=dev),
+        t6, op, FS_EPISODE_STEPS, dt=DT, control_every=5,
+        warmup_steps=FS_EPISODE_WARMUP, qp_iters=40)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return [x.cpu() for x in (ps, th, us)], time.perf_counter() - t0
+
+
+def phase_full_stack(dev: torch.device, card: str) -> dict:
+    """(a) `run_full_stack` with the command's PMPC `solve_fn` in float64 on
+    the card against the same call on CPU tensors (FS_EPISODE_TOL), every
+    backward pass a Riccati launch; (b) the world step at B=1 in float32:
+    ms, device ops, synchronising calls; (c) `python -m dart_tpu_torch.cli pmpc
+    --full_stack --runtime FULL_STACK_RUNTIME` in float32 and in float64
+    with --no_tune and --log_dir, gated on JAX's own commands
+    (JAX_FULL_STACK): `converged` equal, the error and effort within
+    FS_F32_FACTOR x JAX's float32-vs-float64 gap (float32) or FS_F64_FACTOR
+    x JAX's largest 1-ulp change (float64)."""
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.physics import tray_object as to_mod
+    from dart_tpu_torch.rollout import full_stack as fs
+    from dart_tpu_torch.solver import ilqr
+
+    out = {}
+    with plain_riccati_on_card() as plain:
+        riccati_backward.launches, ilqr.host_bool.count = 0, 0
+        (ps, th, us), card_s = _fs_episode(dev, torch.float64)
+        ric, reads = riccati_backward.launches, ilqr.host_bool.count
+        (ps_c, th_c, us_c), cpu_s = _fs_episode(torch.device("cpu"),
+                                                torch.float64)
+        gap = {k: float((a - b).abs().max()) for k, a, b in (
+            ("p", ps, ps_c), ("theta", th, th_c), ("u", us, us_c))}
+        print(f"[full-stack] run_full_stack float64, {FS_EPISODE_STEPS} "
+              f"world steps (2 control steps after {FS_EPISODE_WARMUP}): "
+              f"card vs CPU {gap} (gate {FS_EPISODE_TOL:.0e}); "
+              f"{card_s:.1f} s on the card, {cpu_s:.1f} s on the CPU; {ric} "
+              f"Riccati launches, {reads} host reads [{card}]")
+        if not max(gap.values()) <= FS_EPISODE_TOL:
+            raise AssertionError("full-stack: the card's episode differs "
+                                 "from the CPU's")
+        if not 0 < ric <= 20:
+            raise AssertionError(f"full-stack: {ric} Riccati launches")
+        out["episode"] = {**gap, "card_s": card_s, "launches": ric}
+
+        scene = fs.make_scene(DT, torch.float32, dev)
+        op = to_mod.make_params("cube", 1.0, 0.1, dtype=torch.float32,
+                                device=dev)
+        st = fs.init_full_state(torch.float32, device=dev)
+        u = torch.tensor([[0.05, -0.02]], dtype=torch.float32, device=dev)
+        out["world"] = _world_step_numbers(scene, st, u, op, card,
+                                           "full-stack")
+
+        R = FULL_STACK_RUNTIME
+        n_steps = int(R / DT)
+        solves = -(-(n_steps - FS_CLI_WARMUP) // 5)
+        for name, extra in FS_CLI:
+            ref = JAX_FULL_STACK[name]
+            with tempfile.TemporaryDirectory() as tmp:
+                argv = ["pmpc", "--full_stack", "--runtime", str(R)]
+                for a in extra:
+                    argv += [a, tmp] if a == "--log_dir" else [a]
+                rc, res, ric, reads, wall = run_cli(argv)
+                if "--log_dir" in extra:
+                    log = np.load(res["log_path"])
+                    keys = sorted(log.files)
+                    sse = float(log["steady_state_error"])
+                    print(f"[full-stack] --log_dir: {keys}, X "
+                          f"{log['X'].shape}, steady_state_error {sse}")
+                    if not (log["X"].shape == (n_steps, 6)
+                            and {"t", "U_cmd", "control_effort"} <= set(keys)
+                            and abs(sse - res["steady_state_error"])
+                            <= 1e-12):
+                        raise AssertionError("full-stack: the npz log is "
+                                             "wrong")
+            if name == "float32":
+                r64 = JAX_FULL_STACK["float64"]
+                sse_tol = FS_F32_FACTOR * abs(ref["steady_state_error"]
+                                              - r64["steady_state_error"])
+                eff_tol = FS_F32_FACTOR * abs(ref["control_effort"]
+                                              / r64["control_effort"] - 1)
+            else:
+                sse_tol = FS_F64_FACTOR * ref["witness"]["sse_max"]
+                eff_tol = FS_F64_FACTOR * ref["witness"]["effort_rel_max"]
+            d_sse = abs(res["steady_state_error"] - ref["steady_state_error"])
+            d_eff = abs(res["control_effort"] / ref["control_effort"] - 1)
+            print(f"[full-stack] pmpc --full_stack {' '.join(extra)} "
+                  f"--runtime {R}: rc {rc}, converged {res['converged']} "
+                  f"(JAX {ref['converged']}), steady-state error "
+                  f"{res['steady_state_error']} m (JAX "
+                  f"{ref['steady_state_error']}, difference {d_sse:.3e}, gate "
+                  f"{sse_tol:.3e}), control effort {res['control_effort']} "
+                  f"(JAX {ref['control_effort']}, relative difference "
+                  f"{d_eff:.3e}, gate {eff_tol:.3e}); first call "
+                  f"{res['compile_s']} s, {res['run_s']} s an episode, "
+                  f"{wall:.1f} s wall for 4 episodes; "
+                  f"{ric / 4 / solves:.1f} Riccati launches and "
+                  f"{reads / 4 / solves:.1f} host reads a control step "
+                  f"[{card}]")
+            if rc != 0 or res["converged"] != ref["converged"]:
+                raise AssertionError(f"full-stack {name}: rc {rc}, converged "
+                                     f"{res['converged']}")
+            if not (d_sse <= sse_tol and d_eff <= eff_tol):
+                raise AssertionError(f"full-stack {name}: the command differs"
+                                     " from JAX's")
+            if ric == 0:
+                raise AssertionError(f"full-stack {name}: no Riccati launch")
+            out[name] = {"run_s": res["run_s"], "wall": wall,
+                         "launches": ric / 4 / solves,
+                         "reads": reads / 4 / solves}
+    print(f"[full-stack] plain Riccati calls on the card {plain[0]} (gate 0)")
+    if plain[0] != 0:
+        raise AssertionError("riccati_backward_reference ran on the card")
+    return out
+
+
+def _fst_setup(dev: torch.device, dtype: torch.dtype, gen: torch.Generator):
+    """The full-stack trainer at tools/train_lmpc_fullstack.py's settings:
+    LMPC(N=8, dt=0.01, 4 iterations), FSEnvConfig(substeps=5, qp_iters=20),
+    FST_B envs; the converted fullstack_r5 tuner cast to `dtype`; the
+    start and FST_STEPS steps of draws from `gen`."""
+    from dart_tpu_torch.adapt import lmpc_fullstack as fst
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.adapt import ppo as ppo_mod
+    from dart_tpu_torch.control import mpc as mpc_mod
+    from dart_tpu_torch.io import checkpoint as ckpt
+    from dart_tpu_torch.rollout import full_stack as fs
+
+    ctlr = mpc_mod.LMPC(N=FST_N, dt=0.01,
+                        cfg=mpc_mod.ilqr.ILQRConfig(max_iters=4))
+    cfg = fst.FSEnvConfig(dt=DT, substeps=5, qp_iters=20)
+    scene = fs.make_scene(DT, dtype, dev)
+    model = ppo_mod.ActorCritic(trainer.N_PARAMS, trainer.OBS_DIM)
+    model.load_state_dict(ckpt.load_agent(str(TUNERS / "fullstack_r5"))[
+        "model"])
+    model = model.to(dev, dtype)
+    s0 = fst.env_init(ctlr, cfg, FST_B, dtype, dev, gen=gen)
+    draws = [fst.draw_step(gen, FST_B, cfg, dtype, dev)
+             for _ in range(FST_STEPS)]
+    return model, ctlr, scene, cfg, s0, draws
+
+
+def phase_fullstack_train(dev: torch.device, card: str) -> dict:
+    """The full-stack LMPC trainer: (a) FST_STEPS float64 `env_step`s of
+    FST_B envs with the converted fullstack_r5 tuner on the card against
+    the same calls on CPU tensors with the same CPU-drawn inputs (FST_TOL
+    on every state leaf and the transitions), every backward pass a
+    Riccati launch; (b) `make_train_step(replay=True)` for FST_UPDATES
+    updates of FST_B envs x FST_ROLLOUT steps in float32 from a fresh
+    policy: finite losses, moved parameters; seconds a train step and a
+    control step, Riccati launches a train step."""
+    from dart_tpu_torch.adapt import lmpc_fullstack as fst
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.adapt import ppo as ppo_mod
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.solver import ilqr
+
+    out = {}
+    with plain_riccati_on_card() as plain:
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            model, ctlr, scene, cfg, s, draws = _fst_setup(
+                d, torch.float64, torch.Generator().manual_seed(17))
+            riccati_backward.launches = 0
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trs = []
+            for dr in draws:
+                s, tr = fst.env_step(model, ctlr, scene, s, cfg, dr)
+                trs.append(tr)
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            runs.append((s, trs, time.perf_counter() - t0,
+                         riccati_backward.launches))
+        (sc, trc, secs, ric), (sp, trp, cpu_s, _) = runs
+        worst = {name: _max_diff(a, b, False) for (name, a), (_, b) in zip(
+            [*_leaves(sc, "state.")] + [
+                (f"tr{i}.{n}", x) for i, t in enumerate(trc)
+                for n, x in _leaves(t)],
+            [*_leaves(sp, "state.")] + [
+                (f"tr{i}.{n}", x) for i, t in enumerate(trp)
+                for n, x in _leaves(t)])}
+        top = max(worst, key=worst.get)
+        print(f"[fullstack-train] env_step B={FST_B} N={FST_N} float64 with "
+              f"fullstack_r5, {FST_STEPS} steps of 5 world steps: card vs "
+              f"CPU largest difference {worst[top]:.3e} ({top}; gate "
+              f"{FST_TOL:.0e}); {secs / FST_STEPS * 1e3:.1f} ms a control "
+              f"step on the card (CPU {cpu_s / FST_STEPS * 1e3:.1f}), {ric} "
+              f"Riccati launches [{card}]")
+        if not worst[top] <= FST_TOL:
+            raise AssertionError(f"fullstack-train: {top} {worst[top]}")
+        if ric == 0:
+            raise AssertionError("fullstack-train: no Riccati launch")
+        out["env_step"] = {"worst": worst[top], "ctrl_s_f64": secs / FST_STEPS}
+
+        gen = torch.Generator().manual_seed(0)
+        pcfg = ppo_mod.PPOConfig(epochs=4, minibatch_size=64)
+        ts = trainer.init_train_state(gen, pcfg, dev)
+        _, ctlr, scene, cfg, s, _ = _fst_setup(dev, torch.float32, gen)
+        step = fst.make_train_step(ctlr, scene, cfg, pcfg, FST_ROLLOUT,
+                                   replay=True)
+        buf = trainer.init_replay(FST_B, FST_ROLLOUT, torch.float32, dev)
+        before = [p.detach().clone() for p in ts.model.parameters()]
+        times, launches, stats = [], [], []
+        for _ in range(FST_UPDATES):
+            riccati_backward.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts, s, buf, st = step(ts, s, buf)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches.append(riccati_backward.launches)
+            stats.append({k: float(v) for k, v in st.items()})
+        with torch.no_grad():
+            moved = sum(float((p - q).abs().sum()) for p, q in
+                        zip(ts.model.parameters(), before))
+        print(f"[fullstack-train] make_train_step(replay=True) {FST_UPDATES} "
+              f"updates of {FST_B} envs x {FST_ROLLOUT} steps float32: "
+              f"{[round(t, 2) for t in times]} s a train step, "
+              f"{times[-1] / FST_ROLLOUT * 1e3:.1f} ms a control step with "
+              f"the PPO update spread over it, Riccati launches a train step "
+              f"{launches} (at most 4 x {FST_ROLLOUT}); stats {stats}; "
+              f"parameters moved by {moved:.3e} [{card}]")
+        if not (moved > 0 and all(np.isfinite(v) for s_ in stats
+                                  for v in s_.values())
+                and all(0 < x <= 4 * FST_ROLLOUT for x in launches)):
+            raise AssertionError("fullstack-train: the train step failed")
+        out["train"] = {"step_s": times, "launches": launches}
+        # The kernel at the trainer's shape, float32, about the state the
+        # train steps reached.
+        from dart_tpu_torch.control import mpc as mpc_mod
+        from dart_tpu_torch.rollout import full_stack as fs
+
+        aux, z0 = ctlr._problem(s.ctrl_carry, fs.observe_object_8(
+            s.world, s.obj_params), s.target, mpc_mod.LMPC_DEFAULT_WEIGHTS)
+        out["riccati"] = riccati_at(ctlr.ocp, s.current_k, aux, z0,
+                                    s.ctrl_carry.V, card, "fullstack-train")
+    print(f"[fullstack-train] plain Riccati calls on the card {plain[0]} "
+          "(gate 0)")
+    if plain[0] != 0:
+        raise AssertionError("riccati_backward_reference ran on the card")
+    return out
+
+
 PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
           "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "pmpc-eval",
           "rmpc-eval", "sweep", "solve", "pmpc-cli", "rmpc-cli",
-          "sweep-instance", "ppo", "lmpc-train", "lmpc-eval", "times")
+          "sweep-instance", "ppo", "lmpc-train", "lmpc-eval", "arm",
+          "full-stack", "fullstack-train", "times")
 # Run only when named: the device-time breakdown behind PERF.md section 5,
 # and the Riccati and PMPC kernels' device time against horizon, budget and
 # batch.
@@ -3325,6 +3852,12 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
         res["lmpc_train"] = phase_lmpc_train(dev, card)
     elif ph == "lmpc-eval":
         res["lmpc_eval"] = phase_lmpc_eval(dev, card)
+    elif ph == "arm":
+        res["arm"] = phase_arm(dev, card)
+    elif ph == "full-stack":
+        res["full_stack"] = phase_full_stack(dev, card)
+    elif ph == "fullstack-train":
+        res["fullstack_train"] = phase_fullstack_train(dev, card)
     elif ph == "times":
         res["pmpc_times"] = phase_times(dev, card)
         res["times"] = phase_kernel_times(dev, card)

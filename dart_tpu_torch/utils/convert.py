@@ -6,8 +6,10 @@ over are the tuning tables, the per-lane params and cost data, the carries
 the LMPC plan index included), the solve diagnostics, the contact plant's
 params and state (its bool `toppled` stays bool), the scenario batches and
 the evaluators' metrics and sweep aggregates, the closed-loop results,
-and the trainers' Welford statistics, env states, transitions, PPO
-batches and replay buffers, all NamedTuples with the same names and
+the trainers' Welford statistics, env states, transitions, PPO
+batches and replay buffers, and the dual-arm world's chains, controller
+gains and carries, dynamics snapshots, scenes and world states, all
+NamedTuples with the same names and
 fields in both packages; NamedTuples nest (`RMPCCarry` holds two
 `RLSState`s). The env states' `rng` key has no counterpart: the port
 draws from a `torch.Generator`. Arrays cross as numpy; python floats stay
@@ -25,19 +27,24 @@ from typing import Any
 import numpy as np
 import torch
 
+from dart_tpu_torch.adapt.lmpc_fullstack import FSEnvState
 from dart_tpu_torch.adapt.lmpc_lagplant import LagEnvState
 from dart_tpu_torch.adapt.lmpc_trainer import LMPCEnvState, Transition
 from dart_tpu_torch.adapt.ppo import Batch, ReplayBuffer, WelfordState
 from dart_tpu_torch.adapt.rls import RLSState
+from dart_tpu_torch.control.arm import ArmCarry, ArmDynamics, ArmParams
 from dart_tpu_torch.control.mpc import (LMPCCarry, LMPCWeights, PMPCCarry,
                                         PMPCWeights, RMPCCarry, RMPCWeights,
                                         SolveDiag)
+from dart_tpu_torch.control.opspace import OpspaceCarry, OpspaceParams
 from dart_tpu_torch.io.scenes import ScenarioBatch
 from dart_tpu_torch.models.dynamics import PMPCParams, RMPCParams
 from dart_tpu_torch.parallel.sweep import SweepAggregate
+from dart_tpu_torch.physics.chain import ChainParams
 from dart_tpu_torch.physics.tray_object import (TrayObjectParams,
                                                 TrayObjectState)
 from dart_tpu_torch.rollout.evaluate import PMPCScenarioResult
+from dart_tpu_torch.rollout.full_stack import DualArmScene, FullState
 from dart_tpu_torch.rollout.loop import ClosedLoopResult
 from dart_tpu_torch.rollout.metrics import Metrics
 from dart_tpu_torch.solver.ilqr import ILQRSolution
@@ -50,7 +57,9 @@ _TUPLES = {cls.__name__: cls for cls in
             TrayObjectParams, TrayObjectState, Metrics, ScenarioBatch,
             PMPCScenarioResult, SweepAggregate, ClosedLoopResult,
             WelfordState, LMPCEnvState, LagEnvState, Transition, Batch,
-            ReplayBuffer)}
+            ReplayBuffer, ChainParams, ArmParams, ArmDynamics, ArmCarry,
+            DualArmScene, FullState, OpspaceParams, OpspaceCarry,
+            FSEnvState)}
 # JAX fields the port draws from a generator instead of carrying.
 _DROPPED = {"rng"}
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -14,3 +16,13 @@ def resolve(device: torch.device | str = "cuda") -> torch.device:
         raise RuntimeError("no CUDA device is available; ask for the CPU "
                            "explicitly (device='cpu', or --cpu on the CLI)")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A read-only tensor of `values` (a number or nested tuples), made
+    once per dtype and device: a loop that needs the same small constant
+    every step copies it to the card once, not every step (a copy from
+    pageable host memory waits for the card)."""
+    return torch.tensor(values, dtype=dtype, device=device)

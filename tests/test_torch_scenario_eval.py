@@ -225,13 +225,13 @@ def test_commands_need_the_card_unless_asked(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for main, argv in ((tcli_pmpc.main, []), (tcli_rmpc.main, []),
                        (tcli_sweep.main, []),
-                       (tcli_sweep.main, ["--controller", "rmpc"])):
+                       (tcli_sweep.main, ["--controller", "rmpc"]),
+                       (tcli_pmpc.main, ["--full_stack"])):
         with pytest.raises(SystemExit) as e:
             main(argv + ["--runtime", "0.51"])
         assert e.value.code != 0
         assert "no CUDA device" in capsys.readouterr().err
-    for opt, item in ((["--full_stack"], "item 5"),
-                      (["--video", "x.mp4"], "item 5"),
+    for opt, item in ((["--video", "x.mp4"], "item 6"),
                       (["--stream", "ring"], "item 6")):
         assert tcli_pmpc.main(opt + ["--cpu"]) == 2
         assert item in capsys.readouterr().err
