@@ -126,7 +126,27 @@ Phases, each of which raises on failure (so the script exits non-zero):
    CPU-drawn inputs (1e-9); `make_train_step(replay=True)` for 1 update
    of 8 envs x 2 steps: finite losses, moved parameters, seconds and
    Riccati launches a train step;
-25. times (printed, not gated): each kernel and its plain version per call
+25. mppi-eval: `make_mppi_evaluator()` at its defaults (K=256 x 2
+   iterations, one draw a control step shared by the lanes) on the
+   calibrated contact plant for 2500 steps at B=4096 rows of
+   `random_scenarios(default_rng(0))`, float32, gated on finite controls
+   within |u| <= 0.6 + 1e-6, printing success@1cm, the mean final error,
+   the seconds an episode, ms a control step and a solve's device ops and
+   idle share; the evaluator in float64 on 8 lanes, card against CPU
+   tensors fed the same CPU-drawn perturbations (1e-9); `sweep
+   --controller mppi --runtime 0.6`: exit 0 and 18 finite rows;
+26. neural: `fit_dynamics` at tests/test_neural.py's size (mse < 5e-3),
+   the closed loop through the network at nx=4 (one `riccati_backward`
+   launch an iteration, the error falling below 1 cm), one `ilqr.solve`
+   at nx=6 (nz=8, the generic backward pass, no Riccati launch) card
+   against CPU in float64 (1e-9), and the parallel LQR against the
+   sequential one;
+27. stream: `pmpc --stream --runtime 0.52` (the native ring, a record a
+   step, none dropped, Riccati launches), then `watch --idle_timeout 1`;
+28. video: `pmpc --full_stack --video --runtime 0.52` and `preview
+   --object apple --seconds 0.5`, gated on the frames written and read
+   back, frames not blank and the preview's object moving;
+29. times (printed, not gated): each kernel and its plain version per call
    (CUDA events), each kernel's device time per launch (torch.profiler),
    the closed-loop steps (host clock), and each kernel's launch geometry
    (threads, lanes and shared bytes per block, resident blocks per SM).
@@ -415,19 +435,30 @@ def median_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device time in ms of one launch of `<kernel>_kernel`, from
-    torch.profiler over `reps` calls of `fn`."""
+    """Mean device time in ms of one launch of the template
+    `<kernel>_kernel<...>`, from torch.profiler over `reps` calls of `fn`.
+    A trace on the card can come back with no device event at all (PR
+    10's `times` read none for `rmpc_solve`); such a trace is retried,
+    printing what it held, and after three misses this raises."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(3):
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA and f"{kernel}_kernel<" in e.name]
-    return sum(us) / len(us) / 1e3 if us else float("nan")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = [e.time_range.elapsed_us() for e in cuda
+              if f"{kernel}_kernel<" in e.name]
+        if us:
+            return sum(us) / len(us) / 1e3
+        seen = sorted({e.name[:80] for e in cuda})
+        print(f"[times] device_ms: no {kernel}_kernel launch in the trace "
+              f"of {reps} calls (attempt {attempt + 1}); {len(cuda)} device "
+              f"events, names {seen[:6]}")
+    raise AssertionError(f"torch.profiler recorded no {kernel}_kernel")
 
 
 def bound(flops: int, nbytes: int) -> tuple[float, str]:
@@ -1778,12 +1809,12 @@ def timed_eval(ev, sc):
 
 
 def eval_report(label: str, res, res_w, w: dict, wall: float,
-                wall_w: float, plant_ms: float, card: str,
+                wall_w: float | None, plant_ms: float, card: str,
                 u_bound: float) -> dict:
     """Print an evaluator's quality and times: `res` and `wall` from the
     unwatched run, `res_w`, `wall_w` and the watch `w` from the watched
-    one. Raise on non-finite or out-of-bound controls and non-finite
-    results."""
+    one; `wall_w` None when one watched run gave all of them. Raise on
+    non-finite or out-of-bound controls and non-finite results."""
     m = res.metrics
     success = float((m.steady_state_error < 0.01).float().mean())
     conv = float(m.converged.float().mean())
@@ -1793,12 +1824,16 @@ def eval_report(label: str, res, res_w, w: dict, wall: float,
     step_ms = wall / EVAL_STEPS * 1e3
     ctrl_ms = (wall - EVAL_STEPS * plant_ms / 1e3) / EVAL_SOLVES * 1e3
     dp = float((res.final_p - res_w.final_p).abs().max())
-    print(f"[{label}] {EVAL_STEPS} steps at B={B}, float32, unwatched: "
+    runs = ("watched (~10 small device ops a plant step added)"
+            if wall_w is None else "unwatched")
+    tail = "" if wall_w is None else (
+        f"; the watched run {wall_w:.3f} s, max |final p| difference from it "
+        f"{dp:.3e}")
+    print(f"[{label}] {EVAL_STEPS} steps at B={B}, float32, {runs}: "
           f"{wall:.3f} s wall, {step_ms:.4f} ms per plant step of the loop; "
           f"the plant alone {plant_ms:.4f} ms per step, so {ctrl_ms:.4f} ms "
           f"per control step beyond it ({EVAL_SOLVES} control steps; host "
-          f"clock) [{card}]; the watched run {wall_w:.3f} s, max |final p| "
-          f"difference from it {dp:.3e}")
+          f"clock) [{card}]{tail}")
     print(f"[{label}] success@1cm (final error) {success:.4f}, converged "
           f"(within 1 cm at some step) {conv:.4f}, mean final error "
           f"{float(m.steady_state_error.mean()) * 1e3:.4f} mm; lanes that "
@@ -3355,7 +3390,10 @@ FS_F32_FACTOR = 10
 FS_F64_FACTOR = 10
 # The command in float32 at its defaults, and once in float64 with the
 # general weights and the npz log.
-FS_CLI = (("float32", []),
+# The float32 command also renders its episode (`--video`): the video
+# phase reads that run (`check_fs_video`) rather than running four more
+# episodes.
+FS_CLI = (("float32", ["--video"]),
           ("float64_no_tune", ["--f64", "--no_tune", "--log_dir"]))
 # The full-stack trainer (tools/train_lmpc_fullstack.py's settings).
 FST_B = 8
@@ -3618,8 +3656,12 @@ def phase_full_stack(dev: torch.device, card: str) -> dict:
             with tempfile.TemporaryDirectory() as tmp:
                 argv = ["pmpc", "--full_stack", "--runtime", str(R)]
                 for a in extra:
-                    argv += [a, tmp] if a == "--log_dir" else [a]
+                    argv += ([a, tmp] if a == "--log_dir" else
+                             [a, str(Path(tmp) / "fs.mp4")] if a == "--video"
+                             else [a])
                 rc, res, ric, reads, wall = run_cli(argv)
+                if "--video" in extra:
+                    out["video"] = check_fs_video(rc, res, ric, wall, card)
                 if "--log_dir" in extra:
                     log = np.load(res["log_path"])
                     keys = sorted(log.files)
@@ -3802,11 +3844,427 @@ def phase_fullstack_train(dev: torch.device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# MPPI, the learned-dynamics OCP, telemetry streaming and video
+# ---------------------------------------------------------------------------
+
+MPPI_F64_B = 8             # lanes of the float64 card-vs-CPU episode
+MPPI_F64_STEPS = 265       # three control steps after the 250 at rest
+MPPI_TOL = 1e-9
+MPPI_SWEEP_RUNTIME = 0.6   # sweep --controller mppi: 11 control steps
+NEURAL_STEPS = 20          # closed-loop control steps through the network
+NEURAL_TOL = 1e-9
+STREAM_RUNTIME = 0.52      # pmpc --stream: 260 sim steps, 2 control steps
+PREVIEW_OBJECT = "apple"        # a pack preset that rolls under the tilt
+PREVIEW_SECONDS = 0.5      # preview: 250 plant steps, 13 frames
+
+
+def _mppi_problem(sc, dev: torch.device):
+    """One control step of the MPPI evaluator at B lanes from rest: its
+    OCP, config, params, aux and a shared draw, float32."""
+    from dart_tpu_torch.models import dynamics as dyn
+    from dart_tpu_torch.physics import tray_object as to
+    from dart_tpu_torch.rollout import evaluate
+    from dart_tpu_torch.solver import mppi
+    from dart_tpu_torch.solver.ocp import PMPCAux, make_pmpc_ocp
+
+    ocp = make_pmpc_ocp(dt=DT, u_bound=0.6)
+    cfg = mppi.MPPIConfig(n_samples=256, temperature=0.05, sigma=0.08,
+                          n_iters=2)
+    w = evaluate._select_weights(to.shape_from_kappa(sc.kappa_inv),
+                                 torch.float32)
+    zero = torch.zeros(B, dtype=torch.float32, device=dev)
+    t6 = torch.stack([sc.target_xy[:, 0], zero, sc.target_xy[:, 1], zero,
+                      zero + 0.43, zero], -1)
+    aux = PMPCAux(target=t6, Qp=w.Qp, Qv=w.Qv, R=w.R)
+    params = dyn.PMPCParams(mu=sc.mu, dt=DT)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    noise = mppi.draw_noise(cfg, gen, (), N, 2, torch.float32, dev)
+    z0 = torch.zeros((B, 6), dtype=torch.float32, device=dev)
+    U = torch.zeros((B, N, 2), dtype=torch.float32, device=dev)
+    return ocp, cfg, params, aux, z0, U, noise
+
+
+def phase_mppi_eval(dev: torch.device, card: str) -> dict:
+    """(a) `make_mppi_evaluator()` at its defaults (N=15, u_bound 0.6,
+    K=256 x 2 iterations, temperature 0.05, sigma 0.08, a solve every 5
+    steps after 250 at rest, one draw a control step shared by the lanes)
+    on the calibrated contact plant, 2500 steps at B=4096 rows of
+    `random_scenarios(default_rng(0))`, float32, watched for the gates
+    (finite controls within |u| <= 0.6 + 1e-6) and timed;
+    one control step's device ops and idle share (torch.profiler); (b) the
+    evaluator in float64 on MPPI_F64_B lanes for MPPI_F64_STEPS steps, the
+    card against CPU tensors fed the same CPU-drawn perturbations
+    (MPPI_TOL); (c) `sweep --controller mppi --runtime MPPI_SWEEP_RUNTIME`:
+    exit 0 and 18 finite rows."""
+    from dart_tpu_torch.io import scenes
+    from dart_tpu_torch.rollout import evaluate
+    from dart_tpu_torch.solver import mppi
+
+    sc = eval_scenarios(dev)
+    ev = evaluate.make_mppi_evaluator()
+    # One watched run: the watch costs ~0.5% of an episode here (30.736 s
+    # unwatched, 30.882 s watched in the phase's first call).
+    with plant_watch(dev) as w:
+        res, wall = timed_eval(ev, sc)
+    out = eval_report("mppi-eval", res, res, w, wall, None,
+                      plant_step_ms(sc, dev), card, 0.6)
+    print(f"[mppi-eval] {wall:.3f} s an episode of {EVAL_STEPS} steps at "
+          f"B={B} (K=256 rollouts x 2 iterations a lane and solve: "
+          f"{B * 256} rollouts of {N} stages each) [{card}]")
+    ocp, cfg, params, aux, z0, U, noise = _mppi_problem(sc, dev)
+    with torch.no_grad():
+        mppi.solve(ocp, cfg, params, aux, z0, U, noise)
+        torch.cuda.synchronize()
+        traced_steps(lambda: mppi.solve(ocp, cfg, params, aux, z0, U, noise),
+                     5, card, f"mppi-eval: one MPPI solve at B={B}")
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(7)
+    draws = [mppi.draw_noise(cfg, gen, (), N, 2, torch.float64, cpu)
+             for _ in range(3)]
+    rng_sc = scenes.random_scenarios(np.random.default_rng(1), MPPI_F64_B,
+                                     dtype=torch.float64, device=cpu)
+    runs = []
+    for d in (dev, cpu):
+        ev64 = evaluate.make_mppi_evaluator(
+            n_steps=MPPI_F64_STEPS,
+            draw=lambda j, dtype, device: draws[j].to(device))
+        r = ev64(*(x.to(d) for x in (rng_sc.kappa_inv, rng_sc.mass,
+                                     rng_sc.mu, rng_sc.target_xy)))
+        runs.append([r.final_p.cpu(), *(x.cpu() for x in r.metrics)])
+    # Every float result, an infinite convergence time equal on both.
+    gap = max(float(torch.where(torch.isfinite(b), a - b,
+                                (a != b).double()).abs().max())
+              for a, b in zip(*runs) if a.is_floating_point())
+    print(f"[mppi-eval] float64 B={MPPI_F64_B}, {MPPI_F64_STEPS} steps (3 "
+          f"control steps), card vs CPU on the same CPU draws: {gap:.3e} "
+          f"(gate {MPPI_TOL:.0e})")
+    if not gap <= MPPI_TOL:
+        raise AssertionError(f"mppi-eval: card vs CPU {gap}")
+
+    rc, res_cli, _, _, wall_cli = run_cli(
+        ["sweep", "--controller", "mppi", "--runtime",
+         str(MPPI_SWEEP_RUNTIME)])
+    rows = res_cli["scenarios"]
+    finite = all(np.isfinite(r["sse_mm"]) and np.isfinite(r["effort"])
+                 for r in rows)
+    print(f"[mppi-eval] sweep --controller mppi --runtime "
+          f"{MPPI_SWEEP_RUNTIME}: rc {rc}, {len(rows)} rows, finite {finite},"
+          f" mean sse {res_cli['summary']['mean_sse_mm']} mm, {wall_cli:.1f} "
+          f"s wall [{card}]")
+    if rc != 0 or len(rows) != 18 or not finite:
+        raise AssertionError("mppi-eval: the sweep command failed")
+    return {**out, "episode_s": wall, "f64_gap": gap, "sweep_s": wall_cli}
+
+
+def _neural_plant(x, u):
+    """tests/test_neural.py's 4-state tray plant with nonlinear friction,
+    batched."""
+    vx, vy = x[..., 1], x[..., 3]
+    ax = -9.81 * torch.sin(u[..., 0]) - 0.3 * vx - 0.5 * torch.tanh(vx / 0.05)
+    ay = -9.81 * torch.sin(u[..., 1]) - 0.3 * vy - 0.5 * torch.tanh(vy / 0.05)
+    return torch.stack([vx, ax, vy, ay], -1)
+
+
+def _neural_solve(nx: int, dev: torch.device, dtype: torch.dtype):
+    """One `ilqr.solve` through a random 32-32 network (a seeded
+    generator) at nx, three lanes, N=10, 15 iterations."""
+    from dart_tpu_torch.models import neural
+    from dart_tpu_torch.solver import ilqr
+
+    m = neural.DynamicsMLP(nx, (32, 32), device=dev).reset_parameters(
+        torch.Generator().manual_seed(nx)).to(dtype)
+    ocp = neural.make_neural_ocp(neural.NeuralModel(m), dt=0.02, nx=nx)
+    rng = np.random.default_rng(nx)
+    target = np.zeros(nx)
+    target[[0, 2]] = [0.06, -0.05]
+    Q = np.where(np.arange(nx) % 2 == 0, 200.0, 2.0)
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    aux = tuple(t(a) for a in (target, Q, [0.1, 0.1, 1.0, 1.0], Q))
+    z0 = t(np.concatenate([rng.normal(size=(3, nx)) * 0.02,
+                           rng.uniform(-0.1, 0.1, (3, 2))], -1))
+    V0 = t(rng.uniform(-0.2, 0.2, (3, 10, 2)))
+    return ilqr.solve(ocp, ilqr.ILQRConfig(max_iters=15),
+                      neural.weights(m), aux, z0, V0)
+
+
+def phase_neural(dev: torch.device, card: str) -> dict:
+    """The learned-dynamics path: (a) `fit_dynamics` at tests/test_neural
+    .py's size (4096 transitions, 64-64, 3000 Adam steps, batch 256) on the
+    card, float32, gated on JAX's mse < 5e-3 and held-out relative error <
+    1e-2; (b) the closed loop through the fitted network at nx=4 (nz=6: the
+    Riccati kernel) for NEURAL_STEPS control steps, gated on the error
+    falling below 1 cm and one `riccati_backward` launch per iteration;
+    (c) one `ilqr.solve` at nx=6 (nz=8: the generic backward pass), the
+    card against CPU tensors in float64 (NEURAL_TOL), with no Riccati
+    launch; (d) `lqr_backward_parallel` against `lqr_backward_sequential`
+    on the card."""
+    from dart_tpu_torch.models import dynamics as dyn
+    from dart_tpu_torch.models import neural
+    from dart_tpu_torch.ops import lqr_parallel as lqr
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.solver import ilqr
+
+    out = {}
+    X, U, Y = neural.collect_transitions(
+        _neural_plant, np.random.default_rng(0), 4096, 4, device=dev)
+    m = neural.DynamicsMLP(4, device=dev).reset_parameters(
+        torch.Generator().manual_seed(0))
+    nm = neural.NeuralModel(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w, mse = neural.fit_dynamics(
+        nm, neural.weights(m), X, U, Y,
+        gen=torch.Generator(device=dev).manual_seed(1), steps=3000)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    Xt, Ut, Yt = neural.collect_transitions(
+        _neural_plant, np.random.default_rng(1), 512, 4, device=dev)
+    with torch.no_grad():
+        pred = neural.neural_xdot(nm, w, Xt, Ut)
+    rel = float(((pred - Yt) ** 2).mean() / (Yt ** 2).mean())
+    print(f"[neural] fit_dynamics 3000 steps x 256 of 4096 transitions, "
+          f"64-64, float32: mse {float(mse):.3e} (gate 5e-3), held-out "
+          f"relative {rel:.3e} (gate 1e-2), {fit_s:.2f} s, "
+          f"{fit_s / 3000 * 1e3:.3f} ms a step [{card}]")
+    if not (float(mse) < 5e-3 and rel < 1e-2):
+        raise AssertionError("neural: the fit missed JAX's gates")
+    out["fit_s"], out["mse"] = fit_s, float(mse)
+
+    ocp = neural.make_neural_ocp(nm, dt=0.02, nx=4, u_bound=0.4)
+    target = torch.tensor([0.06, 0.0, -0.05, 0.0], device=dev)
+    aux = (target, torch.tensor([200.0, 2.0, 200.0, 2.0], device=dev),
+           torch.tensor([0.1, 0.1, 1.0, 1.0], device=dev),
+           torch.tensor([200.0, 2.0, 200.0, 2.0], device=dev))
+    cfg = ilqr.ILQRConfig(max_iters=15)
+    step = dyn.discretize(lambda x, u, p: _neural_plant(x, u), 0.02)
+    x = torch.zeros((1, 4), device=dev)
+    V = torch.zeros((1, 15, 2), device=dev)
+    errs, iters = [], 0
+    riccati_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(NEURAL_STEPS):
+        sol = ilqr.solve(ocp, cfg, w, aux,
+                         torch.cat([x, torch.zeros((1, 2), device=dev)], -1),
+                         V)
+        iters += int(sol.iters.sum())
+        V = torch.cat([sol.V[:, 1:], sol.V[:, -1:]], 1)
+        x = step(x, sol.V[:, 0], None)
+        errs.append(float(torch.hypot(x[0, 0] - 0.06, x[0, 2] + 0.05)))
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = riccati_backward.launches
+    print(f"[neural] closed loop through the network, nx=4 (nz=6), "
+          f"{NEURAL_STEPS} control steps: error {errs[0] * 1e3:.2f} -> "
+          f"{errs[NEURAL_STEPS // 2] * 1e3:.2f} -> {errs[-1] * 1e3:.3f} mm "
+          f"(gate < 10 mm, falling), {iters} iterations, {launches} "
+          f"riccati_backward launches (gate: one an iteration), "
+          f"{loop_s / NEURAL_STEPS * 1e3:.1f} ms a control step, "
+          f"{loop_s / iters * 1e3:.1f} ms an iteration [{card}]")
+    if not (errs[-1] < 0.01 and errs[-1] < errs[0]):
+        raise AssertionError("neural: the closed loop did not converge")
+    if launches != iters:
+        raise AssertionError(f"neural: {launches} Riccati launches for "
+                             f"{iters} iterations")
+    out.update(ctrl_ms=loop_s / NEURAL_STEPS * 1e3, launches=launches,
+               iters=iters, final_err=errs[-1])
+
+    riccati_backward.launches = 0
+    card_sol = _neural_solve(6, dev, torch.float64)
+    ric = riccati_backward.launches
+    cpu_sol = _neural_solve(6, torch.device("cpu"), torch.float64)
+    gap = max(float((getattr(card_sol, f).cpu() - getattr(cpu_sol, f))
+                    .abs().max()) for f in ("V", "Z", "K", "cost"))
+    same_iters = torch.equal(card_sol.iters.cpu(), cpu_sol.iters)
+    print(f"[neural] ilqr.solve through the network at nx=6 (nz=8, the "
+          f"generic backward pass), 3 lanes, float64: card vs CPU {gap:.3e} "
+          f"(gate {NEURAL_TOL:.0e}), iterations {card_sol.iters.tolist()} "
+          f"(equal {same_iters}), riccati_backward launches {ric} (gate 0)")
+    if not (gap <= NEURAL_TOL and same_iters and ric == 0):
+        raise AssertionError("neural: the nz=8 solve differs or launched")
+    out["nz8_gap"] = gap
+
+    g = torch.Generator().manual_seed(3)
+    Nh, n, mm = 64, 6, 2
+    A = torch.randn(8, Nh, n, n, generator=g, dtype=torch.float64) * 0.2 + \
+        torch.eye(n, dtype=torch.float64)
+    Bm = torch.randn(8, Nh, n, mm, generator=g, dtype=torch.float64) * 0.3
+    Qh = torch.randn(8, Nh, n, n, generator=g, dtype=torch.float64) * 0.3
+    Q = Qh @ Qh.mT + 0.5 * torch.eye(n, dtype=torch.float64)
+    Rh = torch.randn(8, Nh, mm, mm, generator=g, dtype=torch.float64) * 0.2
+    R = Rh @ Rh.mT + torch.eye(mm, dtype=torch.float64)
+    QN = 2.0 * torch.eye(n, dtype=torch.float64).expand(8, n, n)
+    args = [a.to(dev) for a in (A, Bm, Q, R, QN)]
+    S_par = lqr.lqr_backward_parallel(*args)
+    S_seq = lqr.lqr_backward_sequential(*args)
+    lq_gap = float((S_par - S_seq).abs().max())
+    print(f"[neural] lqr_backward_parallel vs lqr_backward_sequential, 8 "
+          f"problems, N={Nh}, n={n}, float64 on the card: {lq_gap:.3e} "
+          f"(gate 1e-9)")
+    if not lq_gap <= 1e-9:
+        raise AssertionError("neural: the parallel LQR differs")
+    out["lqr_gap"] = lq_gap
+    return out
+
+
+def read_video(path: str, backend: str) -> np.ndarray:
+    """The frames a `VideoWriterThread` wrote, (F, H, W, 3) uint8, read
+    back through the sink that wrote them."""
+    if backend == "npy":
+        return np.load(path)
+    if backend == "cv2":
+        import cv2
+        cap, frames = cv2.VideoCapture(path), []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            frames.append(cv2.cvtColor(f, cv2.COLOR_BGR2RGB))
+        cap.release()
+        return np.stack(frames)
+    import imageio.v2 as imageio
+    return np.stack([np.asarray(f)[..., :3] for f in imageio.mimread(path)])
+
+
+def _drawn_object(frames: np.ndarray,
+                  rgb: tuple = (0x11, 0x77, 0x33)) -> np.ndarray:
+    """Per frame, the centre of the pixels within 40 of `rgb` (the object's
+    green #117733 unless told) in RGB, NaN where there is none: the drawn
+    object (lossy containers shift colours)."""
+    d = np.abs(frames.astype(int) - list(rgb)).sum(-1)
+    out = []
+    for mask in d < 40:
+        ys, xs = np.nonzero(mask)
+        out.append([xs.mean(), ys.mean()] if xs.size else [np.nan, np.nan])
+    return np.asarray(out)
+
+
+def phase_stream(dev: torch.device, card: str) -> dict:
+    """`pmpc --stream RING --runtime STREAM_RUNTIME` through the
+    dispatcher (one episode, a record a sim step into the native ring),
+    gated on the native writer, a record per step, no drop and Riccati
+    launches; then `watch RING --idle_timeout 1` on the file: exit 0 and
+    the record count."""
+    from dart_tpu_torch.io import ringlog
+    from dart_tpu_torch.io.streaming import EPISODE_STREAM_DTYPE
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ring = str(Path(tmp) / "ep.ring")
+        rc, res, ric, reads, wall = run_cli(
+            ["pmpc", "--stream", ring, "--runtime", str(STREAM_RUNTIME)])
+        n_steps = int(STREAM_RUNTIME / DT)
+        recs = ringlog.RingLogger.read(ring, EPISODE_STREAM_DTYPE)
+        st = res["stream"]
+        print(f"[stream] pmpc --stream --runtime {STREAM_RUNTIME}: rc {rc}, "
+              f"native {st['native']} (is_native() {ringlog.is_native()}), "
+              f"{st['records']} records pushed, {st['dropped']} dropped, "
+              f"{recs.size} on disk for {n_steps} steps; {ric} Riccati "
+              f"launches, {reads} host reads; {wall:.2f} s wall, the "
+              f"episode {res['compile_s']} s [{card}]")
+        if not (rc == 0 and st["native"] and ringlog.is_native()
+                and st["records"] == n_steps == recs.size
+                and st["dropped"] == 0
+                and (recs["k"] == np.arange(n_steps)).all()):
+            raise AssertionError("stream: the ring is wrong")
+        if ric == 0:
+            raise AssertionError("stream: no Riccati launch")
+        rc_w, text, _, _, wall_w = run_cli_text(
+            ["watch", ring, "--idle_timeout", "1"])
+        last = text.splitlines()[-1] if text else ""
+        print(f"[stream] watch --idle_timeout 1: rc {rc_w}, {wall_w:.2f} s, "
+              f"last line {last!r}")
+        if rc_w != 0 or f"after {n_steps} records" not in last:
+            raise AssertionError("stream: watch failed")
+    return {"records": st["records"], "launches": ric, "wall": wall}
+
+
+def check_fs_video(rc: int, res: dict, ric: int, wall: float,
+                   card: str) -> dict:
+    """Gate a `pmpc --full_stack --video --runtime FULL_STACK_RUNTIME` run
+    (its JSON `res`, while its file exists): a frame every 20 world steps
+    written to whichever container the writer chain reached and read back,
+    frames not blank, the object and both arms drawn in every frame, the
+    arms' drawn positions moving, Riccati launches. The object rests
+    through the first FS_CLI_WARMUP of the run's 260 world steps, so its
+    drawn position is not asked to move here (the preview asks it)."""
+    v = res["video"]
+    frames = read_video(v["path"], v["backend"])
+    want = -(-int(FULL_STACK_RUNTIME / DT) // 20)
+    spread = [len(np.unique(f.reshape(-1, 3), axis=0)) for f in frames]
+    obj = _drawn_object(frames)
+    arms = [_drawn_object(frames, rgb) for rgb in ((0x33, 0x66, 0xcc),
+                                                   (0xcc, 0x77, 0x22))]
+    drawn = all(np.isfinite(c).all() for c in (obj, *arms))
+    arm_moved = max(float(np.nanmax(np.hypot(*(c - c[0]).T)))
+                    for c in arms)
+    obj_moved = float(np.nanmax(np.hypot(*(obj - obj[0]).T)))
+    print(f"[video] pmpc --full_stack --video --runtime {FULL_STACK_RUNTIME}:"
+          f" rc {rc}, {v['frames']} frames through {v['backend']} to "
+          f"{Path(v['path']).name}, {len(frames)} read back (want {want}), "
+          f"colours per frame {min(spread)}-{max(spread)}, object and arms "
+          f"drawn in every frame {drawn}, the arms' drawn centres moved up "
+          f"to {arm_moved:.2f} px (gate > 1), the object's {obj_moved:.2f} "
+          f"px; {ric} Riccati launches; {wall:.1f} s wall for 4 episodes "
+          f"[{card}]")
+    if not (rc == 0 and v["frames"] == want == len(frames)
+            and min(spread) > 3 and drawn and arm_moved > 1.0 and ric > 0):
+        raise AssertionError("video: the full-stack video is wrong")
+    return {"frames": v["frames"], "backend": v["backend"], "wall": wall,
+            "launches": ric, "arm_moved_px": arm_moved}
+
+
+def phase_video(dev: torch.device, card: str,
+                fs_video: dict | None = None) -> dict:
+    """`pmpc --full_stack --video --runtime FULL_STACK_RUNTIME` (the
+    full-stack phase's float32 command, `fs_video`, when it ran in this
+    call; else run here) and `preview --object PREVIEW_OBJECT --seconds
+    PREVIEW_SECONDS` through the dispatcher, each gated on the frames
+    written (a frame every 20 steps, to whichever container the writer
+    chain reached, read back) and frames not blank, the preview on the
+    object's drawn position moving."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        if fs_video is None:
+            rc, res, ric, _, wall = run_cli(
+                ["pmpc", "--full_stack", "--video", str(Path(tmp) / "fs.mp4"),
+                 "--runtime", str(FULL_STACK_RUNTIME)])
+            fs_video = check_fs_video(rc, res, ric, wall, card)
+        out["full_stack"] = fs_video
+
+        path = str(Path(tmp) / "preview.mp4")
+        rc, res, _, _, wall = run_cli(
+            ["preview", "--object", PREVIEW_OBJECT, "--seconds",
+             str(PREVIEW_SECONDS), "--out", path])
+        frames = read_video(res["written"], res["backend"])
+        want = -(-int(PREVIEW_SECONDS / DT) // 20)
+        obj = _drawn_object(frames)
+        moved = float(np.hypot(*(obj[-1] - obj[0])))
+        spread = [len(np.unique(f.reshape(-1, 3), axis=0)) for f in frames]
+        print(f"[video] preview --object {PREVIEW_OBJECT} --seconds "
+              f"{PREVIEW_SECONDS}: rc {rc}, {res['frames']} frames through "
+              f"{res['backend']}, {len(frames)} read back (want {want}), "
+              f"colours per frame {min(spread)}-{max(spread)}, the drawn "
+              f"object moved {moved:.1f} px (final p {res['final_p']}); "
+              f"{wall:.1f} s wall [{card}]")
+        if not (rc == 0 and res["frames"] == want == len(frames)
+                and min(spread) > 3 and moved > 2.0):
+            raise AssertionError("video: the preview is wrong")
+        out["preview"] = {"frames": res["frames"], "moved_px": moved,
+                          "wall": wall}
+    return out
+
+
 PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
           "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "pmpc-eval",
           "rmpc-eval", "sweep", "solve", "pmpc-cli", "rmpc-cli",
           "sweep-instance", "ppo", "lmpc-train", "lmpc-eval", "arm",
-          "full-stack", "fullstack-train", "times")
+          "full-stack", "fullstack-train", "mppi-eval", "neural", "stream",
+          "video", "times")
 # Run only when named: the device-time breakdown behind PERF.md section 5,
 # and the Riccati and PMPC kernels' device time against horizon, budget and
 # batch.
@@ -3858,6 +4316,15 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
         res["full_stack"] = phase_full_stack(dev, card)
     elif ph == "fullstack-train":
         res["fullstack_train"] = phase_fullstack_train(dev, card)
+    elif ph == "mppi-eval":
+        res["mppi_eval"] = phase_mppi_eval(dev, card)
+    elif ph == "neural":
+        res["neural"] = phase_neural(dev, card)
+    elif ph == "stream":
+        res["stream"] = phase_stream(dev, card)
+    elif ph == "video":
+        res["video"] = phase_video(dev, card,
+                                   res.get("full_stack", {}).get("video"))
     elif ph == "times":
         res["pmpc_times"] = phase_times(dev, card)
         res["times"] = phase_kernel_times(dev, card)

@@ -1,19 +1,21 @@
 """Dispatcher of the port's commands (port of `dart_tpu.cli.__main__`).
 
-    python -m dart_tpu_torch.cli {pmpc|rmpc|lmpc|sweep|demo} [args...]
+    python -m dart_tpu_torch.cli {pmpc|rmpc|lmpc|sweep|demo|preview|watch}
+        [args...]
 
-`demo` runs the three canned experiments of the reference launcher
-(`launch.sh:34-52`): cube precise, cylinder fast, sphere gentle. The other
-commands of `python -m dart_tpu.cli` stop with the ROADMAP Queue 1 item
-that ports them.
+`watch` is the live episode viewer (the reference `mujoco.viewer`
+stand-in): it tails a telemetry ring written by `pmpc --stream` and draws
+the tray map, tilt and error in the terminal. `preview` renders a scene's
+open-loop episode to a video. `demo` runs the three canned experiments of
+the reference launcher (`launch.sh:34-52`): cube precise, cylinder fast,
+sphere gentle. `bench` of `python -m dart_tpu.cli` stops with the ROADMAP
+Queue 1 item that ports it.
 """
 
 import sys
 
 _NOT_PORTED = {
     "bench": "ROADMAP Queue 1 item 1 (the port's bench)",
-    "preview": "ROADMAP Queue 1 item 6 (with the object presets)",
-    "watch": "ROADMAP Queue 1 item 6 (with the telemetry ring)",
 }
 
 
@@ -34,6 +36,12 @@ def main(argv=None):
         return m(rest)
     if cmd == "sweep":
         from dart_tpu_torch.cli.sweep import main as m
+        return m(rest)
+    if cmd == "preview":
+        from dart_tpu_torch.cli.preview import main as m
+        return m(rest)
+    if cmd == "watch":
+        from dart_tpu_torch.cli.watch import main as m
         return m(rest)
     if cmd == "demo":
         from dart_tpu_torch.cli.pmpc import main as m

@@ -3,31 +3,29 @@
 
     python -m dart_tpu_torch.cli pmpc --target 0.05 -0.04 \
         --object_name cube --mass 1.0 --friction 0.1 --runtime 6 \
-        --tolerance 0.01 [--full_stack [--no_tune] [--log_dir DIR]]
+        --tolerance 0.01 [--stream RING_PATH]
+        [--full_stack [--no_tune] [--log_dir DIR] [--video MP4_PATH]]
 
 Runs one episode of the per-scenario PMPC evaluator against the
 contact-plant oracle, or with --full_stack of `PMPC(N=15)` in the
 dual-arm world (impedance QPs, chain dynamics, rigid-grasp tray, contact
 object), on the card (`--cpu`: on the CPU), and prints one JSON line of
 metrics. Like the JAX command it runs the episode four times (a warm
-call, then 3 timed ones); `compile_s` is the first call's seconds. With
---full_stack, --no_tune takes the general weights in place of the
-object's, and --log_dir writes the reference's 17-channel npz log (its
-t, X and U_cmd channels and the metrics); without it both are ignored,
-as in the JAX command.
+call, then 3 timed ones); `compile_s` is the first call's seconds.
+--stream runs the episode once, each step's record going into the
+telemetry ring at RING_PATH (read it live with `watch`), and adds the
+ring's counts to the JSON line. With --full_stack, --no_tune takes the
+general weights in place of the object's, --log_dir writes the
+reference's 17-channel npz log (its t, X and U_cmd channels and the
+metrics), and --video renders the episode's arms, tray and object to a
+video (the first container the writer chain can write); without
+--full_stack the first two are ignored and --video refused, as in the JAX
+command.
 """
 
 import argparse
 import json
-import sys
-
-# Options of `dart_tpu.cli.pmpc` that are not ported yet, and the ROADMAP
-# Queue 1 item that ports each.
-_NOT_PORTED = {
-    "video": "the dual-arm world's renderer, `io/video.py`, and an mp4 "
-             "encoder (ROADMAP Queue 1 item 6)",
-    "stream": "the telemetry ring (ROADMAP Queue 1 item 6)",
-}
+import time
 
 
 def build_parser():
@@ -51,9 +49,12 @@ def build_parser():
                    help="with --full_stack: write the episode's npz log "
                         "under this directory")
     p.add_argument("--video", default=None, metavar="MP4_PATH",
-                   help="not ported: " + _NOT_PORTED["video"])
+                   help="with --full_stack: render the episode's arms, tray "
+                        "and object to a video")
     p.add_argument("--stream", default=None, metavar="RING_PATH",
-                   help="not ported: " + _NOT_PORTED["stream"])
+                   help="stream each step's record through the native "
+                        "telemetry ring (io.streaming.TelemetryTap); read "
+                        "it with `watch` or io.ringlog.RingLogger.read")
     p.add_argument("--f64", action="store_true")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the card")
@@ -63,11 +64,9 @@ def build_parser():
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    for opt in ("video", "stream"):
-        if getattr(args, opt):
-            print(f"pmpc: --{opt} needs {_NOT_PORTED[opt]}, not ported yet",
-                  file=sys.stderr)
-            return 2
+    if args.video and not args.full_stack:
+        p.error("--video requires --full_stack (the plant-only path has no "
+                "arms to render)")
 
     import torch
 
@@ -86,15 +85,27 @@ def main(argv=None):
     n_steps = int(args.runtime / dt)
     if args.full_stack:
         return _full_stack(args, dev, dtype, dt, n_steps)
+    tap = None
+    if args.stream:
+        from dart_tpu_torch.io.streaming import (EPISODE_STREAM_DTYPE,
+                                                 TelemetryTap)
+        tap = TelemetryTap(args.stream, EPISODE_STREAM_DTYPE,
+                           capacity_records=1 << 16)
     ev = make_pmpc_evaluator(n_steps=n_steps, dt=dt, control_every=5,
-                             warmup_steps=250, tol=args.tolerance)
+                             warmup_steps=250, tol=args.tolerance, tap=tap)
 
     def lane(x):
         return torch.tensor([x], dtype=dtype, device=dev)
 
     kinv = lane(_KAPPA_INV[args.object_name])
-    res, compile_s, run_s = timed_call(
-        ev, kinv, lane(args.mass), lane(args.friction), lane(args.target))
+    inputs = (kinv, lane(args.mass), lane(args.friction), lane(args.target))
+    if tap is not None:
+        # One episode: timed_call's repeats would stream it four times.
+        t0 = time.perf_counter()
+        res = ev(*inputs)
+        compile_s, run_s = time.perf_counter() - t0, float("nan")
+    else:
+        res, compile_s, run_s = timed_call(ev, *inputs)
     m = res.metrics
     out = {
         "steady_state_error": float(m.steady_state_error[0]),
@@ -105,6 +116,11 @@ def main(argv=None):
         "run_s": round(run_s, 3),
         "sim_steps": n_steps,
     }
+    if tap is not None:
+        st = tap.stats()
+        tap.close()
+        out["stream"] = {"path": args.stream, "records": st["pushed"],
+                         "dropped": st["dropped"], "native": st["native"]}
     print(json.dumps(to_jsonable(out)))
     return 0
 
@@ -149,9 +165,19 @@ def _full_stack(args, dev, dtype, dt: float, n_steps: int) -> int:
             scene, solve_fn, ctlr.init_carry(1, dtype, dev),
             fs.init_full_state(dtype, device=dev), target6, obj_params,
             n_steps=n_steps, dt=dt, control_every=5, warmup_steps=250,
-            qp_iters=40)
+            qp_iters=40, record_joints=bool(args.video))
 
-    (ps, _, us, _), compile_s, run_s = timed_call(run)
+    out_t, compile_s, run_s = timed_call(run)
+    ps, thetas, us = out_t[:3]
+    video = None
+    if args.video:
+        from dart_tpu_torch.io.video import encode, render_scene
+        qLs, qRs = out_t[3:5]
+        w = encode(args.video, render_scene(
+            qLs[0], qRs[0], ps[0].cpu().numpy(), thetas[0].cpu().numpy(),
+            args.target, scene=scene))
+        video = {"path": w.out_path, "frames": w.frames_written,
+                 "backend": w.backend}
     ps = ps[0].cpu().numpy()
     us = us[0].cpu().numpy()
     err = np.linalg.norm(ps - np.asarray(args.target), axis=1)
@@ -178,6 +204,8 @@ def _full_stack(args, dev, dtype, dt: float, n_steps: int) -> int:
         out["log_path"] = log.save_npz(args.log_dir, args.object_name,
                                        args.mass, args.friction, args.target,
                                        args.tolerance)
+    if video is not None:
+        out["video"] = video
     print(json.dumps(to_jsonable(out)))
     return 0
 

@@ -9,7 +9,8 @@ variant).
         --checkpoint_dir artifacts/lmpc/lagplant_r5
 
 Without `--batch_major` every row is a lane of the per-scenario evaluator
-(`--controller pmpc|rmpc|lmpc`; `lmpc` with the trained policy in
+(`--controller pmpc|rmpc|mppi|lmpc`; `mppi` the sampling MPC, 256
+rollouts x 2 iterations per solve; `lmpc` with the trained policy in
 `--checkpoint_dir/best_agent.pt` tuning its 34 parameters); with it
 (`rmpc` only) the grid, padded to 128 lanes, goes through one RMPCBatch
 solve per control step. Runs on the card; `--cpu` runs the same on the
@@ -18,11 +19,6 @@ CPU, where each kernel's plain PyTorch version stands in for it.
 
 import argparse
 import json
-
-# Controllers not ported yet, and the ROADMAP Queue 1 item that ports each.
-_NOT_PORTED = {
-    "mppi": "the MPPI evaluator (ROADMAP Queue 1 item 6)",
-}
 
 
 def main(argv=None):
@@ -52,9 +48,6 @@ def main(argv=None):
     args = p.parse_args(argv)
     if args.batch_major and args.controller != "rmpc":
         p.error("--batch_major currently supports --controller rmpc")
-    if args.controller in _NOT_PORTED:
-        p.error(f"--controller {args.controller} needs "
-                f"{_NOT_PORTED[args.controller]}, not ported yet")
 
     import torch
 
@@ -114,7 +107,8 @@ def main(argv=None):
         res, agg = sweep_mod.run_sweep(ev, batch)
     else:
         maker = {"pmpc": evaluate.make_pmpc_evaluator,
-                 "rmpc": evaluate.make_rmpc_evaluator}[args.controller]
+                 "rmpc": evaluate.make_rmpc_evaluator,
+                 "mppi": evaluate.make_mppi_evaluator}[args.controller]
         res, agg = sweep_mod.run_sweep(maker(**kw), batch)
 
     m = res.metrics

@@ -6,7 +6,8 @@ interface, bound with ctypes (no PyTorch headers, so a build takes
 seconds). The output lands in `build/dart_tpu_torch/<hash of sources and
 flags>/` beside the package, so a changed source never loads a stale
 library. Only the sources in the checkout and the installed CUDA toolkit
-are used.
+are used. `build_host` compiles a host-side C++ source (the telemetry
+ring, `native/ringlog.cpp`) with g++ the same way.
 """
 
 from __future__ import annotations
@@ -94,6 +95,36 @@ def build() -> tuple[Path, float, str]:
     log = "\n".join(logs)
     log_path.write_text(log)
     return lib, seconds, log
+
+
+HOST_FLAGS = ["-O2", "-std=c++17", "-shared", "-fPIC", "-pthread"]
+
+
+def build_host(source: Path, name: str) -> Path:
+    """Compile the host C++ `source` with g++ into `lib<name>.so` under
+    `build/dart_tpu_torch/<hash of source and flags>/`, unless it is
+    there already. Returns the library's path; raises if g++ is missing
+    or fails."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(source.read_bytes())
+    out_dir = BUILD_ROOT / h.hexdigest()[:16]
+    lib = out_dir / f"lib{name}.so"
+    if lib.exists():
+        return lib
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("g++ not found on PATH; the host library "
+                           f"lib{name}.so cannot be built")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / lib.name
+        run = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp_lib),
+                              str(source)], capture_output=True, text=True)
+        if run.returncode != 0:
+            raise RuntimeError(f"g++ failed on {source.name} (exit "
+                               f"{run.returncode}):\n{run.stderr}")
+        os.replace(tmp_lib, lib)
+    return lib
 
 
 _PTR = ctypes.c_void_p

@@ -7,6 +7,11 @@ over the control step, the feedback gains on the free set, and the
 symmetric value update. nu == 2 (the tray tilt); nz is 6 (PMPC, RMPC's
 augmented state) or 10 (LMPC's augmented state).
 
+`_backward_lanes`, the kernel body's plain version, is also the port's
+generic backward pass (JAX's `ilqr._backward`) for the shapes the kernel
+has no instance for: any nz, and for nu != 2 the projected-Newton box QP
+(`ops.boxqp.boxqp_pn`) with the gains from a batched solve.
+
 `riccati_backward` keeps `riccati_backward_pallas`'s batch-last layout:
 A (N,nz,nz,B), B (N,nz,2,B), lx (N,nz,B), lu (N,2,B), lxx (N,nz,nz,B),
 lux (N,2,nz,B), luu (N,2,2,B), gx (nz,B), gxx (nz,nz,B), V (N,2,B);
@@ -23,6 +28,7 @@ import ctypes
 
 import torch
 
+from dart_tpu_torch.ops.boxqp import boxqp_pn
 from dart_tpu_torch.ops.kernels import _build
 from dart_tpu_torch.ops.kernels.lanes import (_add_diag, _boxqp2_lanes,
                                               _gains_lanes, _mm, _mmc, _mT,
@@ -31,10 +37,26 @@ from dart_tpu_torch.ops.kernels.lanes import (_add_diag, _boxqp2_lanes,
 NZ_INSTANCES = (6, 10)
 
 
+def _boxqp_pn_lanes(Quu, Qu, lo, hi, Qux):
+    """A stage's box QP and gains for any nu, lane layout in and out:
+    projected Newton, then H K = -(Qux on the free rows) with H = free Quu
+    free + diag(1 - free), as JAX's `ilqr._backward`. Returns d (nu,L),
+    K (nu,nz,L)."""
+    Q, g, lo_, hi_, X = (torch.movedim(t, -1, 0)
+                         for t in (Quu, Qu, lo, hi, Qux))
+    d, free = boxqp_pn(Q, g, lo_, hi_)
+    eye = torch.eye(g.shape[-1], dtype=g.dtype, device=g.device)
+    H = Q * free[:, :, None] * free[:, None, :] + eye * (1.0 - free)[:, None]
+    K = -torch.linalg.solve(H, X * free[:, :, None])
+    return torch.movedim(d, 0, -1), torch.movedim(K, 0, -1)
+
+
 def _backward_lanes(A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, lo, hi, reg):
     """Plain version of the kernel body `_backward_kernel`, on (..., L)
-    lanes; lo/hi (2,L), reg (L,)."""
-    N, nz = A.shape[0], A.shape[1]
+    lanes, for any nz and nu; lo/hi (nu,L), reg (L,). nu == 2 takes the
+    kernel's exact box QP and closed-form gains, any other nu
+    `_boxqp_pn_lanes`. Returns D (N,nu,L), K (N,nu,nz,L)."""
+    N, nu = A.shape[0], V.shape[1]
     Vx, Vxx = gx, gxx
     Ds, Ks = [None] * N, [None] * N
     for k in range(N - 1, -1, -1):
@@ -47,10 +69,13 @@ def _backward_lanes(A, Bm, lx, lu, lxx, lux, luu, gx, gxx, V, lo, hi, reg):
         Quu = luu[k] + _mm(_mT(B_k), _mm(Vxx_reg, B_k))
         Quu = _add_diag(0.5 * (Quu + _mT(Quu)), 1e-9)
 
-        d, free = _boxqp2_lanes(Quu, Qu, lo - V[k], hi - V[k])
-        # Every column of Qux at once (the same operations per column).
-        (gains,) = _gains_lanes(Quu, free, [(Qux[0], Qux[1])])
-        K = torch.stack(gains)                                # (2, nz, L)
+        if nu == 2:
+            d, free = _boxqp2_lanes(Quu, Qu, lo - V[k], hi - V[k])
+            # Every column of Qux at once (the same operations per column).
+            (gains,) = _gains_lanes(Quu, free, [(Qux[0], Qux[1])])
+            K = torch.stack(gains)                            # (2, nz, L)
+        else:
+            d, K = _boxqp_pn_lanes(Quu, Qu, lo - V[k], hi - V[k], Qux)
 
         Quu_d = _mv(Quu, d)
         Vx = Qx + _mv(_mT(K), Quu_d) + _mv(_mT(K), Qu) + _mv(_mT(Qux), d)

@@ -1,6 +1,5 @@
-"""Scenario evaluation: closed-loop PMPC / RMPC against the tray-object
-contact plant (port of `dart_tpu.rollout.evaluate`'s PMPC and RMPC
-evaluators).
+"""Scenario evaluation: closed-loop PMPC / MPPI / RMPC / LMPC against the
+tray-object contact plant (port of `dart_tpu.rollout.evaluate`).
 
 A scenario batch advances in one host loop: the plant at the 2 ms sim
 cadence, one solve every `control_every` steps after `warmup_steps` of
@@ -13,9 +12,11 @@ Two kinds of evaluator share each loop. The per-scenario ones
 (`make_pmpc_evaluator`, `make_rmpc_evaluator`) are JAX's single-episode
 evaluators vmapped over the rows: one `PMPC.solve` / `RMPC.solve`
 (`ilqr.solve`, its backward passes on the Riccati kernel on the card) per
-control step. The batch ones solve with `PMPCBatch` / `RMPCBatch`, whose
-whole-solve kernels run on the card when B % 128 == 0; their loop reads
-nothing from the device beyond what the controllers' escalation reads.
+control step; `make_mppi_evaluator` solves the same PMPC OCP by MPPI
+ensembles on a (lane x sample) axis instead. The batch ones solve with
+`PMPCBatch` / `RMPCBatch`, whose whole-solve kernels run on the card when
+B % 128 == 0; their loop reads nothing from the device beyond what the
+controllers' escalation reads.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ from dart_tpu_torch.models import dynamics as dyn
 from dart_tpu_torch.physics import tray_object as to_mod
 from dart_tpu_torch.rollout.metrics import Metrics, compute_metrics
 from dart_tpu_torch.solver import ilqr
+from dart_tpu_torch.solver import mppi as mppi_mod
+from dart_tpu_torch.solver.ocp import PMPCAux, make_pmpc_ocp
 from dart_tpu_torch.utils.tree import lane_where
 
 
@@ -70,16 +73,21 @@ def _trace_metrics(ps: torch.Tensor, us: torch.Tensor,
 
 
 def _pmpc_episodes(ctlr, n_steps: int, dt: float, control_every: int,
-                   warmup_steps: int, tol: float, tray_lag):
-    """The PMPC evaluators' episode loop around `ctlr` (`PMPC` or
-    `PMPCBatch`): `ctlr.solve` per control step, per-object weights per
-    lane, the model's friction the plant's. Returns `evaluate(kappa_inv
+                   warmup_steps: int, tol: float, tray_lag, tap=None):
+    """The PMPC evaluators' episode loop around `ctlr` (`PMPC`,
+    `PMPCBatch` or the MPPI front end): `ctlr.solve` per control step,
+    per-object weights per lane, the model's friction the plant's. With a
+    `tap` (`io.streaming.TelemetryTap` of `EPISODE_STREAM_DTYPE`, one
+    episode only) every step emits its record. Returns `evaluate(kappa_inv
     (B,2), mass (B,), mu (B,), target_xy (B,2)) -> PMPCScenarioResult` with
     per-lane Metrics."""
 
     def evaluate(shape_kappa_inv, mass, mu, target_xy):
         dtype, dev = mass.dtype, mass.device
         B = mass.shape[0]
+        if tap is not None and B != 1:
+            raise ValueError(f"a telemetry tap streams one episode, got "
+                             f"B={B} lanes")
         obj_params = to_mod.scenario_params(shape_kappa_inv, mass, mu, dtype, tray_lag)
         # The model assumes the plant's friction; a python-float gravity
         # keeps the kernel branch open.
@@ -108,6 +116,11 @@ def _pmpc_episodes(ctlr, n_steps: int, dt: float, control_every: int,
                 s = to_mod.step(s, u, obj_params, dt)
                 ps[k] = s.p
                 us[k] = u
+                if tap is not None:
+                    d = s.p[0] - target_xy[0]
+                    tap.emit(k=k, px=s.p[0, 0], py=s.p[0, 1], ux=u[0, 0],
+                             uy=u[0, 1],
+                             err=torch.sqrt(d[0] ** 2 + d[1] ** 2))
         m = _trace_metrics(ps, us, target_xy, dt, tol)
         return PMPCScenarioResult(metrics=m, final_p=s.p)
 
@@ -118,21 +131,83 @@ def make_pmpc_evaluator(n_steps: int = 2500, dt: float = 0.002,
                         control_every: int = 5, warmup_steps: int = 250,
                         N: int = 15, u_bound: float = 0.6,
                         max_iters: int = 10, tol: float = 0.01,
-                        tray_lag=None):
+                        tray_lag=None, tap=None):
     """Per-scenario PMPC evaluator: JAX's single-episode evaluator on a
     lane per row, one `PMPC.solve` (`ilqr.solve`, cfg.max_iters =
     `max_iters`) per control step. The MPC runs every `control_every` sim
     steps (10 ms, the reference's ~100 Hz parallel solve rate) on a
     controller discretised at the sim dt, as the reference discretises;
     the plant at the 2 ms sim cadence with the tray tracking lag standing
-    in for the dual-arm layer.
+    in for the dual-arm layer. A `tap` (`io.streaming.TelemetryTap`,
+    B=1 only) receives every step's record, as `pmpc --stream` asks.
 
     Returns `evaluate(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2))
     -> PMPCScenarioResult` with per-lane Metrics."""
     ctlr = mpc_mod.PMPC(N=N, dt=dt, u_bound=u_bound,
                         cfg=ilqr.ILQRConfig(max_iters=max_iters))
     return _pmpc_episodes(ctlr, n_steps, dt, control_every, warmup_steps,
-                          tol, tray_lag)
+                          tol, tray_lag, tap=tap)
+
+
+class _MPPIFrontEnd:
+    """`mppi.solve` behind the PMPC controllers' interface for
+    `_pmpc_episodes`: a warm nominal sequence per lane, shifted a stage
+    after each solve, and the perturbations of the j-th solve of an
+    episode from `draw(j, dtype, device)`."""
+
+    def __init__(self, ocp, cfg, N: int, draw):
+        self.ocp, self.cfg, self.N, self.draw = ocp, cfg, N, draw
+
+    def init_carry(self, B: int, dtype, device):
+        return torch.zeros((B, self.N, 2), dtype=dtype, device=device), 0
+
+    def solve(self, carry, obs, target6, params, weights):
+        U, j = carry
+        aux = PMPCAux(target=target6, Qp=weights.Qp, Qv=weights.Qv,
+                      R=weights.R)
+        U_new, cost = mppi_mod.solve(self.ocp, self.cfg, params, aux, obs, U,
+                                     self.draw(j, U.dtype, U.device))
+        return (mppi_mod.shift(U_new), j + 1), U_new[:, 0], cost
+
+
+def make_mppi_evaluator(n_steps: int = 2500, dt: float = 0.002,
+                        control_every: int = 5, warmup_steps: int = 250,
+                        N: int = 15, u_bound: float = 0.6,
+                        n_samples: int = 256, n_iters: int = 2,
+                        tol: float = 0.01, seed: int = 0, tray_lag=None,
+                        draw=None):
+    """Sampling-MPC evaluator: the per-scenario PMPC evaluator's episode
+    with the same OCP (discretised at the sim dt) solved by MPPI ensembles
+    of `n_samples` rollouts, `n_iters` refinements, temperature 0.05 and
+    sigma 0.08, the B*K rollouts of all lanes as one batched rollout.
+
+    As in JAX, where every row's closure starts from `PRNGKey(seed)`,
+    every lane sees the same perturbations: one (n_iters, K, N, 2) draw
+    per control step, broadcast over the lanes. `draw(j, dtype, device)`
+    gives the draw of an episode's j-th solve; by default a
+    `torch.Generator` on the lanes' device, seeded with `seed` at the start
+    of each episode, draws it.
+
+    Returns `evaluate(kappa_inv (B,2), mass (B,), mu (B,), target_xy (B,2))
+    -> PMPCScenarioResult` with per-lane Metrics."""
+    ocp = make_pmpc_ocp(dt=dt, u_bound=u_bound)
+    cfg = mppi_mod.MPPIConfig(n_samples=n_samples, temperature=0.05,
+                              sigma=0.08, n_iters=n_iters)
+
+    def evaluate(shape_kappa_inv, mass, mu, target_xy):
+        draw_j = draw
+        if draw_j is None:
+            gen = torch.Generator(device=mass.device).manual_seed(seed)
+
+            def draw_j(j, dtype, device):
+                return mppi_mod.draw_noise(cfg, gen, (), N, 2, dtype, device)
+
+        ctlr = _MPPIFrontEnd(ocp, cfg, N, draw_j)
+        return _pmpc_episodes(ctlr, n_steps, dt, control_every, warmup_steps,
+                              tol, tray_lag)(shape_kappa_inv, mass, mu,
+                                             target_xy)
+
+    return evaluate
 
 
 def make_lmpc_evaluator(model, n_steps: int = 2500, dt: float = 0.002,

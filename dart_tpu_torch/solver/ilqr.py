@@ -3,13 +3,17 @@ augmented-Lagrangian outer loop (port of `dart_tpu.solver.ilqr`).
 
 Batch-first throughout: z (B, nz), V (B, N, nu), per-lane cost data and
 parameters with a leading batch axis, or python scalars that broadcast.
-The Riccati backward pass is `ops.kernels.riccati.riccati_backward`: its
-CUDA kernel on a card, its plain version on the CPU. Linearisation is the
-OCP's closed form when it gives one, else `torch.func.jacfwd`/`hessian`
-under `torch.func.vmap` over lanes and stages. JAX's `while_loop`s become
-host loops; each loop test reads the device (`host_bool`). `solve` is
-`vmap(solve)` of the JAX package on a leading lane axis, `solve_batch` its
-batch-major solve; the two differ in what a finished lane keeps.
+The Riccati backward pass is `ops.kernels.riccati.riccati_backward` (its
+CUDA kernel on a card, its plain version on the CPU) for every shape the
+kernel has an instance for (nu == 2, nz in `NZ_INSTANCES`), and the same
+stage recursion in plain torch (`riccati._backward_lanes`, JAX's generic
+`_backward`) for any other shape, chosen by shape as JAX's `pallas_ok`
+chooses. Linearisation is the OCP's closed form when it gives one, else
+`torch.func.jacfwd`/`hessian` under `torch.func.vmap` over lanes and
+stages. JAX's `while_loop`s become host loops; each loop test reads the
+device (`host_bool`). `solve` is `vmap(solve)` of the JAX package on a
+leading lane axis, `solve_batch` its batch-major solve; the two differ in
+what a finished lane keeps.
 """
 
 from __future__ import annotations
@@ -19,7 +23,8 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
-from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+from dart_tpu_torch.ops.kernels.riccati import (NZ_INSTANCES, _backward_lanes,
+                                                _reg_lanes, riccati_backward)
 
 
 class OCPDef(NamedTuple):
@@ -197,11 +202,31 @@ def _batch_last(x: torch.Tensor) -> torch.Tensor:
     return torch.movedim(x, 0, -1).contiguous()
 
 
+def kernel_route(nz: int, nu: int) -> bool:
+    """Whether a backward pass of this shape goes through
+    `riccati_backward` (the kernel's instances), or else the plain
+    recursion."""
+    return nu == 2 and nz in NZ_INSTANCES
+
+
 def backward(derivs, V, u_lo: tuple, u_hi: tuple, reg: torch.Tensor):
-    """Batch-first Riccati sweep through `riccati_backward`.
+    """Batch-first Riccati sweep: one `riccati_backward` call where
+    `kernel_route` holds, else the same stage recursion in plain torch
+    (`riccati._backward_lanes`, any nz and nu).
     Returns D (B,N,nu), K (B,N,nu,nz)."""
-    D, K = riccati_backward(*(_batch_last(d) for d in derivs), _batch_last(V),
-                            u_lo, u_hi, reg)
+    lanes = [_batch_last(d) for d in derivs]
+    Vl = _batch_last(V)
+    if kernel_route(derivs[0].shape[-1], V.shape[-1]):
+        D, K = riccati_backward(*lanes, Vl, u_lo, u_hi, reg)
+    else:
+        Bt = V.shape[0]
+
+        def box(b):
+            return torch.tensor(b, dtype=V.dtype, device=V.device)[
+                :, None].expand(-1, Bt)
+
+        D, K = _backward_lanes(*lanes, Vl, box(u_lo), box(u_hi),
+                               _reg_lanes(reg, Bt, V))
     return torch.movedim(D, -1, 0), torch.movedim(K, -1, 0)
 
 
@@ -361,7 +386,9 @@ def solve(ocp: OCPDef, cfg: ILQRConfig, params, aux, z0: torch.Tensor,
     K, cost, iteration count, regularisation and gnorm) while the others
     go on. `iters` is each lane's own count summed over the AL rounds, and
     `grad_norm` the max |feedforward| of the lane's last executed
-    iteration. Every backward pass is one `riccati_backward` call.
+    iteration. Every backward pass is one `riccati_backward` call where
+    the kernel has an instance for the shape (`kernel_route`), else its
+    plain recursion.
 
     The loop reads "some lane still active" on the host once per
     iteration, and the backtracking search once per trial (`host_bool`).

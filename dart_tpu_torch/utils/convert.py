@@ -17,7 +17,9 @@ python floats (so a static gravity stays static), and None stays None.
 
 The trained policy crosses as a flax parameter tree (`actor_critic_state
 _dict`) and optax's Adam moments (`adam_state_dict`), each a dict that
-the port's `ActorCritic` and `AdamW` load.
+the port's `ActorCritic` and `AdamW` load; a learned dynamics network
+crosses as its flax `DynamicsMLP` tree through the same converter, which
+the port's `DynamicsMLP` loads.
 """
 
 from __future__ import annotations
@@ -102,10 +104,12 @@ def to_numpy(tree: Any) -> Any:
 
 
 def actor_critic_state_dict(params: dict) -> dict:
-    """A flax `ActorCritic` parameter tree ({"params": {...}} or its inner
-    dict; numpy or JAX leaves) -> the port's `ActorCritic.state_dict()`:
-    a Dense `kernel` (in, out) becomes a Linear `weight` (out, in), bias
-    and `log_std` cross as they are, every value keeps its type."""
+    """A flax parameter tree of Dense layers and plain leaves
+    ({"params": {...}} or its inner dict; numpy or JAX leaves) -> the
+    state dict of the port's module with the same names: `ActorCritic`,
+    or `models.neural.DynamicsMLP` (Dense_0 .. Dense_n). A Dense `kernel`
+    (in, out) becomes a Linear `weight` (out, in), bias and `log_std`
+    cross as they are, every value keeps its type."""
     tree = params.get("params", params)
     out = {}
     for name, leaf in tree.items():

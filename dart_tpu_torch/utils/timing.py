@@ -1,5 +1,6 @@
-"""Timing on the host clock (port of `dart_tpu.utils.timing`'s
-`timed_call` and `Stopwatch`)."""
+"""Timing and tracing (port of `dart_tpu.utils.timing`): `timed_call` and
+`Stopwatch` on the host clock, and `trace(logdir)`, a torch.profiler
+trace of the host and the card written as a Chrome trace into `logdir`."""
 
 from __future__ import annotations
 
@@ -31,6 +32,28 @@ def timed_call(fn: Callable, *args, reps: int = 3):
         out = fn(*args)
         _sync()
     return out, first_s, (time.perf_counter() - t0) / reps
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """Profile the block with torch.profiler (the host, and the card where
+    CUDA is available) and write its Chrome trace to
+    `logdir/trace.json` (open it in chrome://tracing or Perfetto). The
+    profile object is yielded for in-process reads
+    (`key_averages()`)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    _sync()
+    with profile(activities=acts) as prof:
+        yield prof
+        _sync()
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 class Stopwatch:

@@ -155,19 +155,29 @@ def _snapshots():
                 warm=warm, step=step)
 
 
-@pytest.mark.parametrize("carry", ["cold", "warm"])
+@pytest.mark.parametrize("carry", ["cold", "warm", "pinv"])
 def test_compute_torque_matches_jax(carry):
     """`compute_torque` at QP_ITERS on both chains at once (the arm axis,
     as the full stack runs them): the home pose at rest and three random
     poses, from a cold carry and from the carry one control step left
     (qdd_prev and the ADMM duals warm): the carry, the torques and the
-    loss."""
+    loss. "pinv": from the cold carry with lane 3's task-space inverse
+    scaled by 1e-3 on both chains, so its determinant falls below 1e-8
+    and the pseudo-inverse branch computes Mx there."""
     s = _snapshots()
-    want = s["step"](s[carry], s["dyn"], jnp.asarray(s["tpos"]),
+    dyn = s["dyn"]
+    if carry == "pinv":
+        mx = np.asarray(dyn.Mx_inv).copy()
+        mx[:, 3] *= 1e-3
+        det = np.abs(np.linalg.det(mx))
+        assert (det[:, 3] < 1e-8).all() and (det[:, :3] > 1e-8).all()
+        dyn = dyn._replace(Mx_inv=jnp.asarray(mx))
+        carry = "cold"
+    want = s["step"](s[carry], dyn, jnp.asarray(s["tpos"]),
                      jnp.asarray(s["tquat"]))
     got = tarm.compute_torque(
         from_jax(jax.device_get(s[carry]), "cpu"),
-        from_jax(jax.device_get(s["dyn"]), "cpu"),
+        from_jax(jax.device_get(dyn), "cpu"),
         torch.from_numpy(s["tpos"]), torch.from_numpy(s["tquat"]),
         from_jax(jax.device_get(s["params"]), "cpu"), qp_iters=QP_ITERS)
     _close(to_numpy(got[0]), want[0])

@@ -18,8 +18,10 @@ CLI's default target), the reference for `chip_smoke.py`'s sweep gates:
         legacy 10
 """
 
+import io
 import json
 import sys
+from contextlib import redirect_stdout
 
 import jax
 import jax.numpy as jnp
@@ -237,10 +239,11 @@ def test_cli_sweep_json_keys(capsys):
     assert all(r["effort"] > 0 for r in out["scenarios"])
 
 
-def test_entry_points_need_the_card_unless_asked(monkeypatch):
+def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
     """Without CUDA the entry points raise, or the CLI exits non-zero,
-    unless the CPU is asked for; controllers not ported name their
-    ROADMAP item."""
+    unless the CPU is asked for (`sweep --controller mppi` among them);
+    `bench`, the one command not ported, exits 2, and `watch`, which needs
+    no card, tails a ring."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tsc.sweep_grid()
@@ -272,12 +275,23 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
              "supports --controller rmpc"),
             (["--controller", "lmpc", "--cpu", "--checkpoint_dir",
               "/nonexistent"], "no checkpoint"),
-            (["--controller", "mppi", "--cpu"], "Queue 1 item 6")):
+            (["--controller", "mppi"], "no CUDA device")):
         with pytest.raises(SystemExit) as e:
             tcli.main(argv)
         assert e.value.code != 0
+    # `bench` is the one command the port refuses; `watch` needs no card.
     from dart_tpu_torch.cli.__main__ import main as dispatch
-    assert dispatch(["watch"]) == 2
+    from dart_tpu_torch.io.streaming import EPISODE_STREAM_DTYPE, TelemetryTap
+    assert dispatch(["bench"]) == 2
+    ring = str(tmp_path / "ep.ring")
+    tap = TelemetryTap(ring, EPISODE_STREAM_DTYPE)
+    for k in range(3):
+        tap.emit(k=k, px=0.01 * k, py=0.0, ux=0.0, uy=0.0, err=0.05)
+    tap.close()
+    with redirect_stdout(io.StringIO()) as out:
+        assert dispatch(["watch", ring, "--idle_timeout", "0.2",
+                         "--fps", "50"]) == 0
+    assert "stream idle after 3 records" in out.getvalue()
 
 
 def _jax_sweep(lag: str, runtime: float) -> dict:
