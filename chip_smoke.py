@@ -3,6 +3,11 @@
     python3 chip_smoke.py                  # every phase, as the gate runs it
     python3 chip_smoke.py riccati rmpc     # only the named phases
 
+The full run builds the kernels, runs the phases in WORKER_GROUPS' five
+processes side by side on the card (host-clock times inside them are
+taken under that load), then `times` alone; named phases run one after
+another in this process.
+
 Phases, each of which raises on failure (so the script exits non-zero):
 1. device: require CUDA, print versions, the card and its power limit;
 2. build: compile `dart_tpu_torch/csrc/*.cu` with nvcc (one process per
@@ -146,7 +151,23 @@ Phases, each of which raises on failure (so the script exits non-zero):
 28. video: `pmpc --full_stack --video --runtime 0.52` and `preview
    --object apple --seconds 0.5`, gated on the frames written and read
    back, frames not blank and the preview's object moving;
-29. times (printed, not gated): each kernel and its plain version per call
+29. multidevice: the multi-device layer on the one card, each step
+   held to the same work in this process: (a) `run_sweep_batched(
+   make_pmpc_batch_evaluator())` over two gloo rank processes, both on
+   cuda:0, at B=4096 rows of `random_scenarios(default_rng(0))`, 2500
+   steps, float32: every rank's rows the same and bit for bit the two
+   one-rank calls' on the ranks' blocks, the aggregate the masked formula
+   over them (1e-6 relative), `pmpc_solve` launched on each rank; (b)
+   the `sweep` command through the dispatcher under `torchrun --standalone
+   --nproc_per_node=1` (NCCL) at SWEEP_INSTANCE_RUNTIME: one JSON,
+   `devices` 1, the 18 rows of the command without torchrun, Riccati
+   launches; (c) two data-parallel LMPC train steps (the dryrun's
+   controller, one env x 2 steps a rank, float32) on the same two
+   ranks: finite, the ranks' parameters equal bit for bit, step 1's
+   averaged gradient the sequential emulation's (1e-5), Riccati launches
+   on each rank; the ranks and torchrun run side by side with this
+   process's reference work, so the phase's times are taken under load;
+30. times (printed, not gated): each kernel and its plain version per call
    (CUDA events), each kernel's device time per launch (torch.profiler),
    the closed-loop steps (host clock), and each kernel's launch geometry
    (threads, lanes and shared bytes per block, resident blocks per SM).
@@ -163,6 +184,8 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -207,13 +230,19 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def phase_device() -> str:
+def require_card() -> str:
+    """Raise unless CUDA is there; turn TF32 off (each process's own
+    setting). Returns the card's name and power limit."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
+    return card_line()
+
+
+def phase_device() -> str:
+    card = require_card()
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     print(f"[device] {torch.cuda.get_device_name(0)} x "
@@ -4259,12 +4288,321 @@ def phase_video(dev: torch.device, card: str,
     return out
 
 
+# ---------------------------------------------------------------------------
+# The multi-device layer: ranks as processes on the one card
+# ---------------------------------------------------------------------------
+
+SCRIPT = Path(__file__).resolve()
+MD_RANKS = 2
+MD_LANES = 128             # run_sweep_batched's lane multiple
+MD_AGG_RTOL = 1e-6
+MD_TRAIN_ROLLOUT = 2       # the dryrun's 64, cut for the script's time
+MD_TRAIN_STEPS = 2
+MD_GRAD_RTOL = 1e-5        # __graft_entry__.py:152-157's gradient gate
+MD_TIMEOUT = 300           # seconds a rank's process, or torchrun, may take
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _md_train_setup(rank: int, dev: torch.device):
+    """`__graft_entry__.dryrun_multichip`'s controller, env and PPO pass
+    (its rollout cut to MD_TRAIN_ROLLOUT) with one env a rank, float32: the
+    policy and the train generator from seed 0 on every rank, the env from
+    seed 1 + rank. Returns (ctlr, env_cfg, ppo_cfg, TrainState, env)."""
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.adapt import ppo as ppo_mod
+    from dart_tpu_torch.control import mpc as mpc_mod
+
+    ctlr = mpc_mod.LMPC(N=4, dt=0.02, cfg=mpc_mod.ilqr.ILQRConfig(
+        max_iters=2, al_iters=1, n_alphas=4))
+    env_cfg = trainer.EnvConfig(dt=0.02, max_episode_steps=32)
+    ppo_cfg = ppo_mod.PPOConfig(epochs=1, minibatch_size=MD_TRAIN_ROLLOUT)
+    ts = trainer.init_train_state(torch.Generator().manual_seed(0), ppo_cfg,
+                                  dev)
+    env = trainer.env_init(ctlr, env_cfg, 1, torch.float32, dev,
+                           gen=torch.Generator().manual_seed(1 + rank))
+    return ctlr, env_cfg, ppo_cfg, ts, env
+
+
+def md_rank(rank: int, addr: str, out: Path, device: str) -> int:
+    """One of the multidevice phase's gloo ranks, all on `device`: (a) its
+    block of the sharded PMPC batch sweep at B rows, then (c) MD_TRAIN_STEPS
+    data-parallel LMPC train steps; writes out/r{rank}.pt."""
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.ops.kernels import pmpc_solve as kps
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+    from dart_tpu_torch.parallel import mesh as mesh_mod
+    from dart_tpu_torch.parallel import sweep as sweep_mod
+    from dart_tpu_torch.rollout import evaluate
+
+    dev = torch.device(device)
+    mesh_mod.init_distributed(addr, MD_RANKS, rank, backend="gloo",
+                              device=dev)
+    mesh = mesh_mod.make_mesh(MD_RANKS, device=dev)
+    sc = eval_scenarios(dev)
+    ev = evaluate.make_pmpc_batch_evaluator()
+    kps.pmpc_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, agg = sweep_mod.run_sweep_batched(ev, sc, mesh, MD_LANES)
+    torch.cuda.synchronize()
+    res_out = {"sweep_s": time.perf_counter() - t0,
+               "pmpc_launches": kps.pmpc_solve.launches,
+               "metrics": {k: v.cpu() for k, v in
+                           res.metrics._asdict().items()},
+               "final_p": res.final_p.cpu(),
+               "agg": {k: v.cpu() for k, v in agg._asdict().items()}}
+
+    ctlr, env_cfg, ppo_cfg, ts, env = _md_train_setup(rank, dev)
+    step = trainer.make_train_step(ctlr, env_cfg, ppo_cfg, MD_TRAIN_ROLLOUT,
+                                   group=mesh.group)
+    rewards, finite = [], []
+    riccati_backward.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(MD_TRAIN_STEPS):
+        ts, env, stats = step(ts, env)
+        rewards.append(float(stats["mean_reward"]))
+        finite.append(all(bool(torch.isfinite(p).all())
+                          for p in ts.model.parameters()))
+        if k == 0:
+            res_out["grads"] = [p.grad.cpu() for p in ts.model.parameters()]
+    torch.cuda.synchronize()
+    res_out.update(train_s=time.perf_counter() - t0,
+                   riccati_launches=riccati_backward.launches,
+                   rewards=rewards, finite=finite,
+                   params={k: v.cpu() for k, v in
+                           ts.model.state_dict().items()})
+    torch.save(res_out, out / f"r{rank}.pt")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def md_cli_rank(out: Path, argv: list[str]) -> int:
+    """A torchrun rank of a command through the dispatcher, as `python -m
+    dart_tpu_torch.cli` runs it; writes its exit code and Riccati
+    launches to out/cli_r{RANK}.json."""
+    from dart_tpu_torch.cli.__main__ import main as dispatch
+    from dart_tpu_torch.ops.kernels.riccati import riccati_backward
+
+    riccati_backward.launches = 0
+    rc = dispatch(argv)
+    (out / f"cli_r{os.environ['RANK']}.json").write_text(json.dumps(
+        {"rc": rc, "launches": riccati_backward.launches}))
+    return rc
+
+
+def _md_wait(procs: list, label: str) -> list[str]:
+    """Wait for the processes, each bounded by MD_TIMEOUT, and kill what is
+    left on the way out. Returns their standard outputs; a nonzero exit
+    raises."""
+    try:
+        outs = [p.communicate(timeout=MD_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(out[-2000:], err[-4000:])
+            raise AssertionError(f"{label}: process {i} exited "
+                                 f"{p.returncode}")
+    return [out for out, _ in outs]
+
+
+def _md_references(dev: torch.device, argv: list[str]) -> dict:
+    """This process's share of the phase, run while the ranks and torchrun
+    run: (a) the evaluator on each rank's block alone and on the B lanes
+    as one call, (c) each rank's first train step alone on its draws
+    (`rank_generator`'s seed and the rank), its gradient kept, (b) the
+    sweep command without torchrun."""
+    from dart_tpu_torch.adapt import lmpc_trainer as trainer
+    from dart_tpu_torch.io.scenes import ScenarioBatch
+    from dart_tpu_torch.parallel import sweep as sweep_mod
+    from dart_tpu_torch.rollout import evaluate
+
+    sc = eval_scenarios(dev)
+    ev = evaluate.make_pmpc_batch_evaluator()
+
+    def timed(rows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sweep_mod.run_sweep_batched(ev, rows, None, MD_LANES)[0]
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    # B is a multiple of MD_RANKS * MD_LANES: each rank's block is real rows.
+    per = B // MD_RANKS
+    blocks, block_s = zip(*(timed(ScenarioBatch(
+        *(x[r * per:(r + 1) * per] for x in sc))) for r in range(MD_RANKS)))
+    whole, whole_s = timed(sc)
+
+    grads = []
+    for r in range(MD_RANKS):
+        ctlr, env_cfg, ppo_cfg, ts, env = _md_train_setup(r, dev)
+        gen = trainer.rank_generator(ts.gen, r)
+        draws = [trainer.draw_step(gen, 1, torch.float32, dev)
+                 for _ in range(MD_TRAIN_ROLLOUT)]
+        step = trainer.make_train_step(ctlr, env_cfg, ppo_cfg,
+                                       MD_TRAIN_ROLLOUT)
+        step(ts, env, trainer.TrainDraws(rollout=draws))
+        grads.append([p.grad.cpu() for p in ts.model.parameters()])
+    return {"metrics": {k: torch.cat([getattr(b.metrics, k)
+                                      for b in blocks]).cpu()
+                        for k in blocks[0].metrics._fields},
+            "final_p": torch.cat([b.final_p for b in blocks]).cpu(),
+            "block_s": block_s, "whole_s": whole_s,
+            "whole_converged": whole.metrics.converged.cpu(),
+            "grads": [sum(g) / MD_RANKS for g in zip(*grads)],
+            "cli": run_cli(argv)}
+
+
+def _md_sweep(ranks: list[dict], ref: dict, card: str) -> dict:
+    """(a) gates: every rank's rows the same, and equal bit for bit to the
+    one-rank calls on the ranks' blocks; the aggregate the masked formula
+    over them; pmpc_solve launched on each rank."""
+    want = ref["metrics"]
+    flips = int((ref["whole_converged"] != want["converged"]).sum())
+    for r, got in enumerate(ranks):
+        same = all(torch.equal(got["metrics"][k], v) for k, v in want.items())
+        if not (same and torch.equal(got["final_p"], ref["final_p"])):
+            raise AssertionError(f"multidevice: rank {r}'s rows are not the "
+                                 "one-rank calls' on the two blocks")
+    conv = want["converged"]
+    n_conv = float(conv.sum())
+    formula = {"n": float(B), "n_converged": n_conv,
+               "mean_sse": float(want["steady_state_error"].double().mean()),
+               "mean_effort": float(want["control_effort"].double().mean()),
+               "mean_conv_time": float(want["convergence_time"][conv]
+                                       .double().sum()) / max(n_conv, 1.0)}
+    agg_err = max(abs(float(ranks[0]["agg"][k]) - v) / max(abs(v), 1e-30)
+                  for k, v in formula.items())
+    success = float((want["steady_state_error"] < 0.01).float().mean())
+    rank_s = [round(g["sweep_s"], 3) for g in ranks]
+    block_s = [round(t, 3) for t in ref["block_s"]]
+    print(f"[multidevice] (a) run_sweep_batched(make_pmpc_batch_evaluator(),"
+          f" B={B}, {EVAL_STEPS} steps, float32) over {MD_RANKS} gloo ranks "
+          f"on one card: each rank's sweep {rank_s} s, pmpc_solve "
+          f"launches {[g['pmpc_launches'] for g in ranks]}; "
+          f"rows bit for bit the one-rank calls' on each block; aggregate "
+          f"vs the masked formula {agg_err:.3e} relative (gate "
+          f"{MD_AGG_RTOL}); success@1cm {success:.4f}; lanes whose "
+          f"`converged` differs from one {B}-lane call: {flips}; in this "
+          f"process, one rank's block alone {block_s} s, the {B} lanes as "
+          f"one call {ref['whole_s']:.3f} s [{card}]")
+    if not agg_err <= MD_AGG_RTOL:
+        raise AssertionError(f"multidevice: aggregate off by {agg_err}")
+    if min(g["pmpc_launches"] for g in ranks) == 0:
+        raise AssertionError("multidevice: a rank launched no pmpc_solve")
+    return {"sweep_s": [g["sweep_s"] for g in ranks],
+            "block_s": ref["block_s"], "whole_s": ref["whole_s"],
+            "agg_err": agg_err, "success": success, "flips": flips,
+            "launches": [g["pmpc_launches"] for g in ranks]}
+
+
+def _md_train(ranks: list[dict], ref: dict, card: str) -> dict:
+    """(c) gates: finite rewards and parameters after each step, the ranks'
+    parameters equal bit for bit after the last, step 1's averaged
+    gradient the sequential emulation's (each rank's train step run alone
+    on its draws, the gradients averaged) to MD_GRAD_RTOL, and Riccati
+    launches on each rank."""
+    err = max(float(((a - b).abs() / (1.0 + a.abs())).max())
+              for a, b in zip(ranks[0]["grads"], ref["grads"]))
+    same = all(torch.equal(v, ranks[1]["params"][k])
+               for k, v in ranks[0]["params"].items())
+    rank_s = [round(g["train_s"], 3) for g in ranks]
+    print(f"[multidevice] (c) {MD_TRAIN_STEPS} data-parallel LMPC train "
+          f"steps (N=4, one env x {MD_TRAIN_ROLLOUT} steps a rank, float32) "
+          f"over {MD_RANKS} gloo ranks: {rank_s} s, mean rewards "
+          f"{[g['rewards'] for g in ranks]}, riccati "
+          f"launches {[g['riccati_launches'] for g in ranks]}; step 1's "
+          f"averaged gradient vs the sequential emulation {err:.3e} (gate "
+          f"{MD_GRAD_RTOL}); parameters equal across ranks: {same} [{card}]")
+    for r, g in enumerate(ranks):
+        if not (all(g["finite"]) and all(np.isfinite(g["rewards"]))):
+            raise AssertionError(f"multidevice: rank {r} went non-finite")
+        if g["riccati_launches"] == 0:
+            raise AssertionError(f"multidevice: rank {r} launched no "
+                                 "riccati_backward")
+    if not same:
+        raise AssertionError("multidevice: the ranks' parameters differ")
+    if not err <= MD_GRAD_RTOL:
+        raise AssertionError(f"multidevice: gradient off by {err}")
+    return {"train_s": [g["train_s"] for g in ranks], "grad_err": err,
+            "launches": [g["riccati_launches"] for g in ranks]}
+
+
+def _md_cli(text: str, rank0: dict, ref: dict, card: str) -> dict:
+    """(b) gates: torchrun's rank exits 0 and prints one JSON with
+    `devices` 1 and 18 rows equal to the same command's without torchrun,
+    after Riccati launches."""
+    got = json.loads(text)
+    rc, want, ric, _, plain_wall = ref["cli"]
+    print(f"[multidevice] (b) torchrun --nproc_per_node=1 ... cli sweep "
+          f"--runtime {SWEEP_INSTANCE_RUNTIME}: rc {rank0['rc']}, devices "
+          f"{got['summary']['devices']}, {len(got['scenarios'])} rows, "
+          f"{rank0['launches']} riccati launches; without torchrun rc {rc}, "
+          f"{ric} launches, {plain_wall:.3f} s [{card}]")
+    if rank0["rc"] != 0 or rc != 0:
+        raise AssertionError("multidevice: the sweep command failed")
+    if got["summary"]["devices"] != 1 or len(got["scenarios"]) != 18:
+        raise AssertionError("multidevice: torchrun's sweep JSON is wrong")
+    if got != want:
+        raise AssertionError("multidevice: torchrun's sweep differs from "
+                             "the command's without torchrun")
+    if rank0["launches"] == 0:
+        raise AssertionError("multidevice: no riccati_backward launch "
+                             "under torchrun")
+    return {"launches": rank0["launches"]}
+
+
+def phase_multidevice(dev: torch.device, card: str) -> dict:
+    """The multi-device layer on the one card: (a) `run_sweep_batched` of
+    `make_pmpc_batch_evaluator()` over two gloo ranks at B rows, EVAL_STEPS
+    steps, float32, then (c) two data-parallel LMPC train steps, both ranks
+    on `dev`; (b) the sweep command under torchrun with NCCL at world size
+    1. The rank processes and torchrun run side by side with this
+    process's reference work (`_md_references`), so every time the phase
+    prints is taken under that load."""
+    argv = ["sweep", "--runtime", str(SWEEP_INSTANCE_RUNTIME)]
+    with tempfile.TemporaryDirectory() as tmp:
+        addr = f"127.0.0.1:{_free_port()}"
+        cmds = [[sys.executable, str(SCRIPT), "rank", str(r), addr, tmp,
+                 str(dev)] for r in range(MD_RANKS)]
+        cmds.append([sys.executable, "-m", "torch.distributed.run",
+                     "--standalone", "--nproc_per_node=1", str(SCRIPT),
+                     "rank-cli", tmp, *argv])
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(c, cwd=SCRIPT.parent,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        try:
+            ref = _md_references(dev, argv)
+        finally:
+            outs = _md_wait(procs, "multidevice")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(Path(tmp) / f"r{r}.pt", weights_only=True)
+                 for r in range(MD_RANKS)]
+        rank0 = json.loads((Path(tmp) / "cli_r0.json").read_text())
+    print(f"[multidevice] two ranks, torchrun and this process's share, "
+          f"start to the last exit: {wall:.3f} s [{card}]")
+    return {"wall": wall, "sweep": _md_sweep(ranks, ref, card),
+            "train": _md_train(ranks, ref, card),
+            "cli": _md_cli(outs[-1], rank0, ref, card)}
+
+
 PHASES = ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main",
           "rescue", "lmpc", "lmpc-main", "lmpc-fallback", "pmpc-eval",
           "rmpc-eval", "sweep", "solve", "pmpc-cli", "rmpc-cli",
           "sweep-instance", "ppo", "lmpc-train", "lmpc-eval", "arm",
           "full-stack", "fullstack-train", "mppi-eval", "neural", "stream",
-          "video", "times")
+          "video", "multidevice", "times")
 # Run only when named: the device-time breakdown behind PERF.md section 5,
 # and the Riccati and PMPC kernels' device time against horizon, budget and
 # batch.
@@ -4325,6 +4663,8 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
     elif ph == "video":
         res["video"] = phase_video(dev, card,
                                    res.get("full_stack", {}).get("video"))
+    elif ph == "multidevice":
+        res["multidevice"] = phase_multidevice(dev, card)
     elif ph == "times":
         res["pmpc_times"] = phase_times(dev, card)
         res["times"] = phase_kernel_times(dev, card)
@@ -4334,16 +4674,32 @@ def run_phase(ph: str, dev: torch.device, card: str, res: dict) -> None:
         phase_scan(dev, card)
 
 
-def main(argv: list[str]) -> int:
-    phases = argv or list(PHASES)
-    unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
-    if unknown:
-        raise SystemExit(f"unknown phases {sorted(unknown)}; "
-                         f"choose from {PHASES + EXTRA_PHASES}")
-    card = phase_device()
-    dev = torch.device("cuda", 0)
-    t_start = time.perf_counter()
-    phase_build()
+# The default run's phases, in worker processes that share the card: each
+# group's phases run in order in one process, the groups side by side. One
+# after another the phases took 900-1000 s on an H100 (PERF.md section 5),
+# too near the 1200 s limit; the groups are balanced on those seconds.
+# `video` reads `full-stack`'s result, so they share a group. `times` runs
+# alone after the workers, on an idle card. Named phases run one after
+# another in this process, as before.
+WORKER_GROUPS = (
+    ("pmpc", "riccati", "rmpc", "main", "fallback", "rmpc-main", "rescue",
+     "lmpc", "lmpc-main", "lmpc-fallback", "pmpc-eval"),
+    ("sweep", "lmpc-eval", "ppo", "arm"),
+    ("full-stack", "video", "stream", "multidevice"),
+    ("solve", "neural", "rmpc-cli"),
+    ("rmpc-eval", "lmpc-train", "mppi-eval", "fullstack-train", "pmpc-cli",
+     "sweep-instance"),
+)
+WORKER_TIMEOUT = 900       # seconds for a group's process
+# What the kernels' JSON line reads from the phases' results.
+RECORD_KEYS = ("pmpc_launches", "pmpc_err", "ric_err", "rmpc_err",
+               "lmpc_err", "fallback", "rmpc_main", "lmpc_main")
+
+
+def run_phases(phases: list[str], dev: torch.device, card: str
+               ) -> tuple[dict, list[str]]:
+    """Each phase in turn, its failure printed and noted, not raised.
+    Returns (results, the phases that failed)."""
     res, failed = {}, []
     for ph in phases:
         t0 = time.perf_counter()
@@ -4353,6 +4709,94 @@ def main(argv: list[str]) -> int:
             traceback.print_exc()
             failed.append(ph)
         print(f"[phase] {ph}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return res, failed
+
+
+def worker(out: Path, phases: list[str]) -> int:
+    """One group's process: its phases, then the part of their results the
+    kernels' JSON line reads, and the failed phases, written to `out`."""
+    card = require_card()
+    res, failed = run_phases(phases, torch.device("cuda", 0), card)
+    record = {k: res[k] for k in RECORD_KEYS if k in res}
+    for k in ("fallback", "rmpc_main", "lmpc_main"):
+        if k in record:
+            record[k] = {"launches": int(record[k]["launches"])}
+    out.write_text(json.dumps({"res": record, "failed": failed}))
+    return 1 if failed else 0
+
+
+def run_workers(groups: tuple) -> tuple[dict, list[str]]:
+    """Start one process a group, all at once, each bounded by
+    WORKER_TIMEOUT and killed on the way out if it is still running; print
+    their outputs group by group. CPU threads are shared out among them.
+    Returns (the merged results, the failed phases)."""
+    cores = len(os.sched_getaffinity(0))
+    env = {**os.environ,
+           "OMP_NUM_THREADS": str(max(2, cores // len(groups)))}
+    res, failed = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        procs = []
+        try:
+            for i, group in enumerate(groups):
+                with open(tmp / f"w{i}.out", "w") as so, \
+                        open(tmp / f"w{i}.err", "w") as se:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(SCRIPT), "worker",
+                         str(tmp / f"w{i}.json"), *group],
+                        cwd=SCRIPT.parent, env=env, stdout=so, stderr=se))
+            deadline = time.perf_counter() + WORKER_TIMEOUT
+            for p in procs:
+                try:
+                    p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+                except subprocess.TimeoutExpired:
+                    pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for i, (group, p) in enumerate(zip(groups, procs)):
+            print(f"[worker] {i}: {' '.join(group)}: exit {p.returncode}")
+            print((tmp / f"w{i}.out").read_text(), end="", flush=True)
+            sys.stderr.write((tmp / f"w{i}.err").read_text())
+            result = tmp / f"w{i}.json"
+            if not result.exists():
+                failed.append(f"worker {i} ({' '.join(group)}): exit "
+                              f"{p.returncode}, no result")
+                continue
+            got = json.loads(result.read_text())
+            res.update(got["res"])
+            failed += got["failed"]
+    return res, failed
+
+
+def main(argv: list[str]) -> int:
+    # The multidevice phase's own processes, and the default run's groups.
+    if argv[:1] == ["rank"]:
+        return md_rank(int(argv[1]), argv[2], Path(argv[3]), argv[4])
+    if argv[:1] == ["rank-cli"]:
+        return md_cli_rank(Path(argv[1]), argv[2:])
+    if argv[:1] == ["worker"]:
+        return worker(Path(argv[1]), argv[2:])
+    phases = argv or list(PHASES)
+    unknown = set(phases) - set(PHASES) - set(EXTRA_PHASES)
+    if unknown:
+        raise SystemExit(f"unknown phases {sorted(unknown)}; "
+                         f"choose from {PHASES + EXTRA_PHASES}")
+    card = phase_device()
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    phase_build()
+    if argv:
+        res, failed = run_phases(phases, dev, card)
+    else:
+        res, failed = run_workers(WORKER_GROUPS)
+        t0 = time.perf_counter()
+        print(f"[phase] workers: {t0 - t_start:.1f} s", flush=True)
+        more, failed_times = run_phases(["times"], dev, card)
+        res.update(more)
+        failed += failed_times
     print(f"[phase] all: {time.perf_counter() - t_start:.1f} s")
     if failed:
         print(f"chip_smoke: phases failed: {failed}")

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from dart_tpu_torch.adapt import lmpc_trainer as trainer
 from dart_tpu_torch.adapt import ppo as ppo_mod
@@ -203,10 +204,13 @@ def env_step(model: ppo_mod.ActorCritic, ctlr: mpc_mod.LMPC,
 
 def make_train_step(ctlr: mpc_mod.LMPC, scene: fs.DualArmScene,
                     env_cfg: FSEnvConfig, ppo_cfg: ppo_mod.PPOConfig,
-                    rollout_len: int, replay: bool = False):
+                    rollout_len: int, replay: bool = False,
+                    group: dist.ProcessGroup | None = None):
     """`lmpc_trainer.make_train_step` with the full-stack env; with
     ``replay=True`` the reference's dual-buffer update (`rlmpc2.py:
-    822-874`), the buffer sized by `lmpc_trainer.init_replay`."""
+    822-874`), the buffer sized by `lmpc_trainer.init_replay`. `group`
+    makes it data parallel over its ranks, as `lmpc_trainer.make_train_step`'s
+    does."""
     def collect(model, s, draws, gen):
         def step(s, d, gen):
             return env_step(model, ctlr, scene, s, env_cfg, d, gen)
@@ -214,4 +218,4 @@ def make_train_step(ctlr: mpc_mod.LMPC, scene: fs.DualArmScene,
         return trainer._rollout(step, _base, model, s, rollout_len, draws,
                                 gen)
 
-    return trainer._make_train_step(collect, ppo_cfg, replay)
+    return trainer._make_train_step(collect, ppo_cfg, replay, group)

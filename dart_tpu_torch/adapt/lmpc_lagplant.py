@@ -20,6 +20,7 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from dart_tpu_torch.adapt import lmpc_trainer as trainer
 from dart_tpu_torch.adapt import ppo as ppo_mod
@@ -164,9 +165,11 @@ def env_step(model: ppo_mod.ActorCritic, ctlr: mpc_mod.LMPC,
 
 def make_train_step(ctlr: mpc_mod.LMPC, env_cfg: LagEnvConfig,
                     ppo_cfg: ppo_mod.PPOConfig, rollout_len: int,
-                    replay: bool = False):
+                    replay: bool = False,
+                    group: dist.ProcessGroup | None = None):
     """`lmpc_trainer.make_train_step` with the lag-plant env (dual-buffer
-    replay supported)."""
+    replay supported). `group` makes it data parallel over its ranks, as
+    `lmpc_trainer.make_train_step`'s does."""
     def collect(model, s, draws, gen):
         def step(s, d, gen):
             return env_step(model, ctlr, s, env_cfg, d, gen)
@@ -174,4 +177,4 @@ def make_train_step(ctlr: mpc_mod.LMPC, env_cfg: LagEnvConfig,
         return trainer._rollout(step, _base, model, s, rollout_len, draws,
                                 gen)
 
-    return trainer._make_train_step(collect, ppo_cfg, replay)
+    return trainer._make_train_step(collect, ppo_cfg, replay, group)

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from dart_tpu_torch.adapt import ppo as ppo_mod
 from dart_tpu_torch.control import mpc as mpc_mod
@@ -354,15 +355,28 @@ class TrainDraws(NamedTuple):
     replay_perms: torch.Tensor | None = None
 
 
+def rank_generator(gen: torch.Generator, rank: int) -> torch.Generator:
+    """A generator for rank `rank`'s envs, seeded from one draw of `gen`
+    and the rank: ranks whose `gen` agree keep it in step (for the shared
+    permutations and subsample) while each rank's envs draw their own
+    noise and resets, as JAX's envs carry their own keys beside the
+    replicated train key."""
+    seed = int(torch.randint(2**62, (), generator=gen, device=gen.device))
+    return torch.Generator(gen.device).manual_seed(seed + rank)
+
+
 def _make_train_step(collect: Callable, ppo_cfg: ppo_mod.PPOConfig,
-                     replay: bool):
+                     replay: bool, group: dist.ProcessGroup | None = None):
     """The training step around `collect(model, env_states, draws, gen) ->
-    (env_states, Transition (B, T, ...), last_values (B,))`."""
+    (env_states, Transition (B, T, ...), last_values (B,))`; `group`
+    averages both PPO passes' gradients over its ranks."""
 
     def train_core(ts: TrainState, env_states, buf, draws):
         d = draws if draws is not None else TrainDraws()
+        gen = (ts.gen if group is None
+               else rank_generator(ts.gen, dist.get_rank(group)))
         env_states, traj, last_values = collect(ts.model, env_states,
-                                                d.rollout, ts.gen)
+                                                d.rollout, gen)
         adv = ppo_mod.compute_gae(traj.reward, traj.value, traj.done,
                                   last_values, ppo_cfg.gamma,
                                   ppo_cfg.gae_lambda)
@@ -375,7 +389,7 @@ def _make_train_step(collect: Callable, ppo_cfg: ppo_mod.PPOConfig,
                               logps=flat(traj.logp), advantages=flat(adv),
                               returns=flat(returns))
         stats = ppo_mod.ppo_update(ts.model, ts.opt, batch, ppo_cfg,
-                                   d.perms, ts.gen)
+                                   d.perms, ts.gen, group)
         stats = {"mean_reward": traj.reward.mean(), **dict(zip(
             ("policy_loss", "value_loss", "entropy"), stats))}
         if buf is not None:
@@ -384,7 +398,7 @@ def _make_train_step(collect: Callable, ppo_cfg: ppo_mod.PPOConfig,
                 flat(traj.reward), flat(traj.value), flat(traj.done),
                 d.subsample, ts.gen)
             buf, did = ppo_mod.replay_maybe_update(
-                ts.model, ts.opt, buf, ppo_cfg, d.replay_perms, ts.gen)
+                ts.model, ts.opt, buf, ppo_cfg, d.replay_perms, ts.gen, group)
             stats["global_update"] = float(did)
         return ts, env_states, buf, stats
 
@@ -401,10 +415,16 @@ def _make_train_step(collect: Callable, ppo_cfg: ppo_mod.PPOConfig,
 
 def make_train_step(ctlr: mpc_mod.LMPC, env_cfg: EnvConfig,
                     ppo_cfg: ppo_mod.PPOConfig, rollout_len: int,
-                    replay: bool = False):
+                    replay: bool = False,
+                    group: dist.ProcessGroup | None = None):
     """The full training step, in place on the TrainState's model and
     optimizer: (TrainState, LMPCEnvState[, draws]) -> (TrainState, env
     states, stats): a rollout of every env, GAE, the local PPO pass.
+
+    With `group` the step is data parallel (JAX's `axis_name`): each rank
+    steps its own envs (drawn from `rank_generator`) and averages its PPO
+    gradients over the group. Build the model from the same generator
+    seed on every rank: the averaged gradients keep it the same.
 
     With ``replay=True`` it is the reference's dual-buffer update
     (`rlmpc2.py:822-874`): (ts, env_states, ReplayBuffer[, draws]) -> (ts,
@@ -416,7 +436,7 @@ def make_train_step(ctlr: mpc_mod.LMPC, env_cfg: EnvConfig,
         return collect_rollout(model, ctlr, s, env_cfg, rollout_len, draws,
                                gen)
 
-    return _make_train_step(collect, ppo_cfg, replay)
+    return _make_train_step(collect, ppo_cfg, replay, group)
 
 
 def init_replay(n_envs: int, rollout_len: int, dtype=torch.float32,

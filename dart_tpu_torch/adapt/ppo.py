@@ -29,6 +29,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from dart_tpu_torch.utils.device import resolve
@@ -363,17 +364,35 @@ def draw_perms(gen: torch.Generator, epochs: int, T: int) -> torch.Tensor:
                         for _ in range(epochs)])
 
 
+def pmean_grads(params, group: dist.ProcessGroup) -> None:
+    """Replace each gradient by its mean over the ranks of `group` (JAX's
+    `pmean`): one all_reduce of the gradients as one flat buffer, then a
+    division by the world size."""
+    grads = [p.grad for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat, group=group)
+    flat = flat / dist.get_world_size(group)
+    for g, part in zip(grads, torch.split(flat, [g.numel() for g in grads])):
+        g.copy_(part.view_as(g))
+
+
 def ppo_update(model: ActorCritic, opt: AdamW, batch: Batch,
                cfg: PPOConfig, perms: torch.Tensor | None = None,
-               gen: torch.Generator | None = None):
+               gen: torch.Generator | None = None,
+               group: dist.ProcessGroup | None = None):
     """Minibatched multi-epoch PPO pass, in place on `model` and `opt`.
 
     Advantages and returns are normalised over the whole batch with the
     population std (rlmpc2.py:783,790). `perms` (epochs, T) orders each
     epoch's samples (drawn from `gen` when not given); the minibatches
     are consecutive `minibatch_size` slices of it, a remainder dropped.
-    Returns the means of (policy_loss, value_loss, entropy) over the
-    minibatches, each taken before its step."""
+    With `group`, this rank's batch is its shard of a data-parallel one:
+    the normalisation stays per shard, as JAX's inside `shard_map`, and
+    each minibatch's gradients are averaged over the group before the
+    optimizer clips and steps (`pmean` before optax's chain), so every
+    rank that starts from the same model and draws the same `perms` keeps
+    the same model. Returns the means of (policy_loss, value_loss,
+    entropy) over this rank's minibatches, each taken before its step."""
     T = batch.obs.shape[0]
     adv = batch.advantages
     adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
@@ -393,6 +412,8 @@ def ppo_update(model: ActorCritic, opt: AdamW, batch: Batch,
             opt.zero_grad(set_to_none=True)
             loss, stats = ppo_loss(model, mb_batch, cfg)
             loss.backward()
+            if group is not None:
+                pmean_grads(model.parameters(), group)
             opt.step()
             aux.append(torch.stack([s.detach().to(loss.dtype)
                                     for s in stats]))
@@ -473,11 +494,14 @@ def replay_add_subsample(buf: ReplayBuffer, obs, actions, logps, rewards,
 
 def replay_maybe_update(model: ActorCritic, opt: AdamW, buf: ReplayBuffer,
                         cfg: PPOConfig, perms: torch.Tensor | None = None,
-                        gen: torch.Generator | None = None):
+                        gen: torch.Generator | None = None,
+                        group: dist.ProcessGroup | None = None):
     """Run the global PPO pass iff the buffer is full, then clear it
     (`rlmpc2.py:828-874`); one host read of the fill. `perms` (epochs, C)
-    orders the pass (drawn from `gen` when not given). Returns (buf,
-    did_update)."""
+    orders the pass (drawn from `gen` when not given); `group` averages
+    its gradients as `ppo_update` does. The fill schedule is
+    deterministic, so every rank of a group takes the same branch.
+    Returns (buf, did_update)."""
     C = buf.obs.shape[0]
     if not bool(buf.size >= C):
         return buf, False
@@ -487,5 +511,5 @@ def replay_maybe_update(model: ActorCritic, opt: AdamW, buf: ReplayBuffer,
                       cfg.gamma, cfg.gae_lambda)
     batch = Batch(obs=buf.obs, actions=buf.actions, logps=buf.logps,
                   advantages=adv, returns=adv + buf.values)
-    ppo_update(model, opt, batch, cfg, perms, gen)
+    ppo_update(model, opt, batch, cfg, perms, gen, group)
     return buf._replace(size=torch.zeros_like(buf.size)), True

@@ -8,8 +8,11 @@ stand-in): it tails a telemetry ring written by `pmpc --stream` and draws
 the tray map, tilt and error in the terminal. `preview` renders a scene's
 open-loop episode to a video. `demo` runs the three canned experiments of
 the reference launcher (`launch.sh:34-52`): cube precise, cylinder fast,
-sphere gentle. `bench` of `python -m dart_tpu.cli` stops with the ROADMAP
-Queue 1 item that ports it.
+sphere gentle. `sweep` shards its rows over the ranks when started by
+`torchrun` (`torchrun --standalone --nproc_per_node=k -m dart_tpu_torch.cli
+sweep ...`: one rank a card over NCCL, or gloo on the CPU with `--cpu`).
+`bench` of `python -m dart_tpu.cli` stops with the ROADMAP Queue 1 item
+that ports it.
 """
 
 import sys

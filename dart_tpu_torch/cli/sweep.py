@@ -1,6 +1,6 @@
-"""18-config evaluation sweep on one device (port of `dart_tpu.cli.sweep`;
-the batched equivalent of running `PMPC/launch.sh` over every world_*.xml
-variant).
+"""18-config evaluation sweep over the ranks of a mesh (port of
+`dart_tpu.cli.sweep`; the batched equivalent of running `PMPC/launch.sh`
+over every world_*.xml variant).
 
     python -m dart_tpu_torch.cli.sweep --targets 0.05,-0.04 0.08,0.06 \
         --runtime 5
@@ -15,6 +15,14 @@ rollouts x 2 iterations per solve; `lmpc` with the trained policy in
 (`rmpc` only) the grid, padded to 128 lanes, goes through one RMPCBatch
 solve per control step. Runs on the card; `--cpu` runs the same on the
 CPU, where each kernel's plain PyTorch version stands in for it.
+
+Under `torchrun` the rows shard over the ranks, one rank a card (NCCL),
+or over gloo on the CPU with `--cpu`; rank 0 prints the JSON, whose
+`devices` is the world size:
+
+    torchrun --standalone --nproc_per_node=2 -m dart_tpu_torch.cli sweep
+    torchrun --standalone --nproc_per_node=2 -m dart_tpu_torch.cli sweep \
+        --cpu --runtime 0.51
 """
 
 import argparse
@@ -49,6 +57,29 @@ def main(argv=None):
     if args.batch_major and args.controller != "rmpc":
         p.error("--batch_major currently supports --controller rmpc")
 
+    import torch.distributed as dist
+
+    from dart_tpu_torch.parallel import mesh as mesh_mod
+    from dart_tpu_torch.utils.device import resolve
+
+    try:
+        dev = resolve("cpu" if args.cpu else "cuda")
+    except RuntimeError as e:
+        p.error(str(e))
+    try:
+        mesh_mod.init_distributed(device=dev)
+    except ValueError as e:       # torchrun's variables, some but not all
+        p.error(str(e))
+    try:
+        _sweep(p, args, mesh_mod.make_mesh(device=dev))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+def _sweep(p, args, mesh):
+    """The sweep on this rank of `mesh`; rank 0 prints the JSON."""
     import torch
 
     from dart_tpu_torch.io import scenes
@@ -56,12 +87,8 @@ def main(argv=None):
     from dart_tpu_torch.parallel import sweep as sweep_mod
     from dart_tpu_torch.physics import tray_object as to_mod
     from dart_tpu_torch.rollout import evaluate
-    from dart_tpu_torch.utils.device import resolve
 
-    try:
-        dev = resolve("cpu" if args.cpu else "cuda")
-    except RuntimeError as e:
-        p.error(str(e))
+    dev = mesh.device
     # None = the evaluators' fully calibrated default (lag + per-shape
     # dissipation + backlash).
     tray_lag = to_mod.LEGACY_TRAY_LAG if args.tray_lag == "legacy" else None
@@ -74,7 +101,7 @@ def main(argv=None):
               tol=args.tolerance, tray_lag=tray_lag)
     if args.batch_major:
         ev = evaluate.make_rmpc_batch_evaluator(**kw)
-        res, agg = sweep_mod.run_sweep_batched(ev, batch)
+        res, agg = sweep_mod.run_sweep_batched(ev, batch, mesh)
     elif args.controller == "lmpc":
         # Trained-policy LMPC on the contact plant (`run.py:243-311`).
         from dart_tpu_torch.adapt import lmpc_trainer as trainer
@@ -104,12 +131,12 @@ def main(argv=None):
                 1, act_cfg, dtype) for (tx, ty), mu_i, m_i in rows])
             return ev0(k, m, mu, t, init_k.to(dev))
 
-        res, agg = sweep_mod.run_sweep(ev, batch)
+        res, agg = sweep_mod.run_sweep(ev, batch, mesh)
     else:
         maker = {"pmpc": evaluate.make_pmpc_evaluator,
                  "rmpc": evaluate.make_rmpc_evaluator,
                  "mppi": evaluate.make_mppi_evaluator}[args.controller]
-        res, agg = sweep_mod.run_sweep(maker(**kw), batch)
+        res, agg = sweep_mod.run_sweep(maker(**kw), batch, mesh)
 
     m = res.metrics
     cols = {k: v.cpu().tolist() for k, v in (
@@ -137,12 +164,12 @@ def main(argv=None):
         "mean_sse_mm": round(float(agg.mean_sse) * 1e3, 3),
         "mean_conv_time_s": round(float(agg.mean_conv_time), 3),
         "mean_effort": round(float(agg.mean_effort), 4),
-        "devices": 1,
+        "devices": mesh.size,
         "tray_lag": args.tray_lag,
     }
-    print(json.dumps(to_jsonable({"summary": summary,
-                                  "scenarios": rows}), indent=1))
-    return 0
+    if mesh.rank == 0:
+        print(json.dumps(to_jsonable({"summary": summary,
+                                      "scenarios": rows}), indent=1))
 
 
 if __name__ == "__main__":
